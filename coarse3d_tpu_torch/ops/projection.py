@@ -1,0 +1,133 @@
+"""Spherical range-image projection on the device (PyTorch).
+
+Port of the JAX package's ``ops/projection.py`` device path
+(``pixel_coords``, ``range_project_batch``, ``build_range_features``,
+``normalize_features``). Behavioral model: the reference's
+RangeProjection.doProjection (preprocess/projection.py:43-115): depth =
+||xyz||2, yaw = -atan2(y, x), pitch = asin(z / depth); normalize by FOV,
+floor + clamp to W x H pixel coords; the *nearest* point wins each pixel,
+ties to the lowest point index.
+
+The per-pixel winner is kernel K1 (:func:`ops.proj_scatter.scatter_min`)
+on a CUDA tensor and its plain twin on a CPU tensor; the winner-row gather
+and the coordinate math stay plain tensor ops, as they stayed XLA outside
+the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from coarse3d_tpu_torch.configs.config import SensorSpec
+from coarse3d_tpu_torch.ops.proj_scatter import scatter_min
+
+
+def _fov_params(sensor: SensorSpec) -> tuple[float, float, float, float]:
+    fov_down = math.radians(sensor.fov_down)
+    fov_vert = math.radians(abs(sensor.fov_up)) + abs(fov_down)
+    fov_left = math.radians(sensor.fov_left)
+    fov_hori = abs(fov_left) + math.radians(abs(sensor.fov_right))
+    return fov_down, fov_vert, fov_left, fov_hori
+
+
+def pixel_coords(xyz: torch.Tensor, depth: torch.Tensor, sensor: SensorSpec
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-point int32 pixel coords (px, py) for a spherical projection."""
+    fov_down, fov_vert, fov_left, fov_hori = _fov_params(sensor)
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    yaw = -torch.atan2(y, x)
+    pitch = torch.asin(torch.clamp(z / torch.clamp_min(depth, 1e-12), -1.0, 1.0))
+    proj_x = (yaw + abs(fov_left)) / fov_hori * sensor.proj_w
+    proj_y = (1.0 - (pitch + abs(fov_down)) / fov_vert) * sensor.proj_h
+    px = torch.clamp(torch.floor(proj_x), 0, sensor.proj_w - 1).to(torch.int32)
+    py = torch.clamp(torch.floor(proj_y), 0, sensor.proj_h - 1).to(torch.int32)
+    return px, py
+
+
+def scatter_inputs(points: torch.Tensor, valid: torch.Tensor,
+                   sensor: SensorSpec):
+    """Per-point (flat pixel id, depth, px, py) of (B, P, C>=3) clouds: the
+    inputs of the scatter-min. flat is int32, H*W on padding (dropped)."""
+    xyz = points[..., :3].float()
+    depth = torch.sqrt((xyz * xyz).sum(-1))
+    if sensor.max_depth > 0:
+        depth = torch.clamp_max(depth, sensor.max_depth)
+    px, py = pixel_coords(xyz, depth, sensor)
+    hw = sensor.proj_h * sensor.proj_w
+    flat = torch.where(valid, py * sensor.proj_w + px, hw).to(torch.int32)
+    return flat.contiguous(), depth.contiguous(), px, py
+
+
+def range_project_batch(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    sensor: SensorSpec,
+    mask_excludes_point0: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Batched range projection of padded (B, P, C>=3) clouds.
+
+    Args:
+      points: (B, P, C) float32, first 3 channels xyz; padded rows arbitrary.
+      valid: (B, P) bool, False on padding.
+      sensor: projection geometry.
+      mask_excludes_point0: reproduce the reference's `proj_idx > 0` mask bug
+        (SURVEY §5.1 defect #4).
+
+    Returns a dict with proj_points (B, H, W, C) (-1 fill), proj_range
+    (B, H, W) (-1 fill), proj_idx (B, H, W) int32 (-1 fill), proj_mask
+    (B, H, W) int32, and per-point px / py (int32) / depth (B, P) for
+    unprojection — the JAX function's layout and fills.
+    """
+    b, p, c = points.shape
+    h, w = sensor.proj_h, sensor.proj_w
+    flat, depth, px, py = scatter_inputs(points, valid, sensor)
+    min_depth, win_local = scatter_min(flat, depth, h * w)
+
+    hit = win_local < p
+    proj_idx = torch.where(hit, win_local, -1).view(b, h, w)
+    proj_range = torch.where(hit, min_depth, -1.0).view(b, h, w)
+    base = torch.arange(b, device=points.device, dtype=torch.int64)[:, None] * p
+    rows = points.reshape(b * p, c)[
+        (base + win_local.clamp(0, p - 1).long()).reshape(-1)]
+    proj_points = torch.where(hit.reshape(-1, 1), rows, -1.0).view(b, h, w, c)
+
+    if mask_excludes_point0:
+        proj_mask = (proj_idx > 0).to(torch.int32)
+    else:
+        proj_mask = (proj_idx >= 0).to(torch.int32)
+
+    return {
+        "proj_points": proj_points,
+        "proj_range": proj_range,
+        "proj_idx": proj_idx,
+        "proj_mask": proj_mask,
+        "px": px,
+        "py": py,
+        "depth": depth,
+    }
+
+
+def build_range_features(proj_points: torch.Tensor, proj_range: torch.Tensor
+                         ) -> torch.Tensor:
+    """Stack the 5-channel (range, x, y, z, masked-intensity) feature image.
+
+    HWC layout, as the JAX function returns it (the model permutes to NCHW).
+    Intensity -1 (empty pixel fill) is zeroed, matching `ne(-1) * intensity`.
+    """
+    intensity = proj_points[..., 3]
+    intensity = torch.where(intensity == -1.0, 0.0, intensity)
+    return torch.cat(
+        [proj_range[..., None], proj_points[..., :3], intensity[..., None]],
+        dim=-1).float()
+
+
+def normalize_features(features: torch.Tensor, eval_mask: torch.Tensor,
+                       sensor: SensorSpec) -> torch.Tensor:
+    """(x - mean) / std, zeroed outside the eval mask (trainer.py:599-609)."""
+    mean = torch.tensor(sensor.img_mean, dtype=torch.float32,
+                        device=features.device)
+    std = torch.tensor(sensor.img_stds, dtype=torch.float32,
+                       device=features.device)
+    return (features - mean) / std * eval_mask[..., None].float()

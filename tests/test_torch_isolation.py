@@ -1,0 +1,155 @@
+"""The PyTorch port stands alone: importing coarse3d_tpu_torch and every
+submodule loads neither jax nor any module of the JAX package; no source
+file of the port names them; entry points refuse to run without a card
+unless the caller asks for the CPU; and the port's copies of the JAX
+package's framework-free modules still agree with their originals."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import coarse3d_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(coarse3d_tpu_torch.__file__))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import coarse3d_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "coarse3d_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_import_loads_no_jax():
+    """Run in a fresh interpreter: conftest.py has already imported jax."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout       # every submodule was imported
+    assert bad == "[]", bad
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b)"
+    r"|\bcoarse3d_tpu\b(?!_torch)", re.M)
+
+
+def test_sources_name_no_jax():
+    hits = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    for m in _FORBIDDEN.finditer(fh.read()):
+                        hits.append(f"{os.path.relpath(path, REPO)}: {m[0]!r}")
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "build_model", "infer"])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """With device left at its default, an entry point raises without a
+    card; device='cpu' runs."""
+    from coarse3d_tpu_torch.configs import preset
+    from coarse3d_tpu_torch.device import resolve_device
+    from coarse3d_tpu_torch.train.setup import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = preset("tiny")
+    if entry == "resolve_device":
+        call = resolve_device
+        assert resolve_device("cpu").type == "cpu"
+    elif entry == "build_model":
+        def call():
+            return build_model(cfg)
+        assert build_model(cfg, device="cpu") is not None
+    else:
+        from coarse3d_tpu_torch.tools.infer import main
+
+        scan = tmp_path / "0.bin"
+        np.zeros((10, 4), np.float32).tofile(scan)
+
+        def call():
+            main(["--preset", "tiny", "--weights", "unused.pth",
+                  "--scans", str(scan), "--out", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_config_copy_matches_jax():
+    """Every preset, and CLI overrides, give the same config in both."""
+    from coarse3d_tpu.configs import config as jcfg
+    from coarse3d_tpu_torch.configs import config as tcfg
+
+    for name in ("tiny", "kitti", "poss", "nuscenes", "nuscenes_32"):
+        assert (dataclasses.asdict(tcfg.preset(name))
+                == dataclasses.asdict(jcfg.preset(name))), name
+    sets = ["train.lr=0.02", "model.stem=s2d", "data.cls_counts=[0,1,2]"]
+    assert (dataclasses.asdict(tcfg.apply_overrides(tcfg.preset("kitti"), sets))
+            == dataclasses.asdict(
+                jcfg.apply_overrides(jcfg.preset("kitti"), sets)))
+
+
+def test_data_copies_match_jax(tmp_path):
+    from coarse3d_tpu.data import label_maps as jlm
+    from coarse3d_tpu.data import readers as jrd
+    from coarse3d_tpu.data import synthetic as jsyn
+    from coarse3d_tpu_torch.configs import preset
+    from coarse3d_tpu_torch.data import label_maps as tlm
+    from coarse3d_tpu_torch.data import readers as trd
+    from coarse3d_tpu_torch.data import synthetic as tsyn
+
+    sensor = preset("kitti").sensor
+    got = tsyn.synthetic_scan(np.random.default_rng(0), 5000, 20, sensor)
+    want = jsyn.synthetic_scan(np.random.default_rng(0), 5000, 20, sensor)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for a, b in zip(tsyn.pad_points(got["points"], 6000),
+                    jsyn.pad_points(got["points"], 6000)):
+        np.testing.assert_array_equal(a, b)
+    for ds in ("semantic_kitti", "semantic_poss", "nuscenes"):
+        t, j = tlm.get_label_spec(ds), jlm.get_label_spec(ds)
+        assert t.class_names == j.class_names
+        np.testing.assert_array_equal(t.lut, j.lut)
+        np.testing.assert_array_equal(t.lut_inv, j.lut_inv)
+    path = tmp_path / "scan.bin"
+    np.arange(40, dtype=np.float32).tofile(path)
+    np.testing.assert_array_equal(trd.read_kitti_scan(str(path)),
+                                  jrd.read_kitti_scan(str(path)))
+    np.testing.assert_array_equal(trd.read_nuscenes_scan(str(path)),
+                                  jrd.read_nuscenes_scan(str(path)))
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
+    """chip_smoke.py names no JAX import, and without a card (or alone in
+    a directory) it exits non-zero and prints no result line."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    with open(script) as f:
+        src = f.read()
+    assert not re.search(
+        r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b"
+        r"|import\s+coarse3d_tpu\b(?!_torch)|from\s+coarse3d_tpu\b(?!_torch))",
+        src, re.M)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(src)
+    for cwd, path in ((REPO, script), (tmp_path, str(alone))):
+        out = subprocess.run([sys.executable, path], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
