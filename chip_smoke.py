@@ -9,6 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. K1 (projection scatter-min) at KITTI size (B=16 scans of 120k points
    padded to 150k, 64x2048 images), kernel vs its plain twin: exact;
 3. K2 (KNN vote) on the same projection, 20 classes: kernel vs twin: exact;
+3b. K3 (prototype Sinkhorn/EMA tail) at KITTI training shapes (C=20,
+   M=2048, K=20, D=256; an empty ignore class, one more empty class, one
+   full class, random counts elsewhere), kernel vs twin: max abs error
+   <= 2e-5 at momentum 0.999; >= 0.95 of the (C, K) rows within 1e-4 at
+   momentum 0 (a rare argmax flip moves a whole row); no NaN; the empty
+   classes keep l2(memory);
 4. the serving path: SalsaNext (parity stem, full width, bf16 compute,
    seeded random weights, BatchNorm statistics calibrated on two scans so
    the label map is not constant) answers 3 batches of 16 scans through
@@ -17,7 +23,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    [1, 19]; one scan through the float32 path on the CPU agrees with the
    card's float32 run (TF32 off) on >= 0.99 of its points;
 5. timings (CUDA events, median of 20 after warm-up) of each kernel and its
-   twin, of the path's stages and of a whole batch.
+   twin, of the path's stages and of a whole batch;
+6. the training path: SalsaNext at full width (bf16 autocast, D=256, K=20,
+   M=2048, A=512) on B=4 synthetic KITTI scans (120k points padded to 150k,
+   weak ratio 0.001) through ``build_state`` / ``make_train_step``: one
+   warmup step and 3 contrast steps at select ratio 0.3, then
+   ``make_eval_step(use_knn=True)``; K3 and K2 launched in that run, every
+   loss finite, the memory moved and stays unit-norm, the parameters
+   changed, each confusion matrix counts every valid point;
+7. one float32 contrast step on one scan, CPU vs card (TF32 off, dropout
+   0, same state, batch and noise): focal and Lovász within 1e-3
+   relative, contrast within 1e-2 (an anchor draw may fall on the other
+   side of a CDF boundary), the memory after the step within 1e-4;
+8. training timings (CUDA events, median of 10 after warm-up): the
+   contrast and warmup steps, their stages, peak memory.
 
 It prints the card's name and power limit (nvidia-smi), one line per timing
 tagged with them, a ``{"kernels": [...]}`` line, and last
@@ -46,6 +65,10 @@ WARMUP = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BN_GAIN = 0.8               # see calibrated_state
+TRAIN_BATCH = 4             # scans per training step (bench.py:main_train)
+CONTRAST_STEPS = 3
+SELECT_RATIO = 0.3
+TRAIN_REPS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -148,6 +171,224 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k3_case(dev, seed: int = 3):
+    """Seeded K3 inputs at KITTI training shapes: normal rows, a l2-normed
+    memory, Gumbel noise; class 0 (ignore) and class 1 empty, class 2 full,
+    random valid counts elsewhere (valid rows are a prefix, as the class
+    gather gives them)."""
+    import torch
+
+    c, m, k, d = 20, 2048, 20, 256
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feat = torch.randn(c, m, d, generator=g, device=dev)
+    protos = torch.randn(c, k, d, generator=g, device=dev)
+    protos = protos / protos.norm(dim=-1, keepdim=True)
+    u = torch.rand(c, m, k, generator=g, device=dev).clamp_min(1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    counts = torch.randint(1, m, (c,), generator=g, device=dev)
+    counts[0] = 0
+    counts[1] = 0
+    counts[2] = m
+    valid = torch.arange(m, device=dev)[None, :] < counts[:, None]
+    return feat, valid, protos, gumbel
+
+
+def train_phase(cfg, dev):
+    """Phase 6: the training path at full width, B=TRAIN_BATCH."""
+    import torch
+
+    from coarse3d_tpu_torch.data.synthetic import synthetic_batch
+    from coarse3d_tpu_torch.ops import knn_vote as k2
+    from coarse3d_tpu_torch.ops import proto_update as k3
+    from coarse3d_tpu_torch.train.setup import build_alpha, build_state
+    from coarse3d_tpu_torch.train.step import (
+        batch_to_device,
+        make_eval_step,
+        make_train_step,
+    )
+
+    host = synthetic_batch(np.random.default_rng(5), cfg, TRAIN_BATCH,
+                           n_points=N_POINTS, weak_ratio=0.001)
+    batch = batch_to_device(host, dev)
+    state = build_state(cfg, device=dev, seed=0, steps_per_epoch=100)
+    alpha = build_alpha(cfg)
+    warm = make_train_step(cfg, alpha, with_contrast=False)
+    contrast = make_train_step(cfg, alpha, with_contrast=True)
+    evaluate = make_eval_step(cfg, use_knn=True)
+    params0 = [p.detach().clone() for p in state.model.parameters()]
+    protos0 = state.prototypes.clone()
+    n_valid = int(host["point_valid"].sum())
+
+    k3.proto_tail.launches = 0
+    k2.knn_vote.launches = 0
+    state, m = warm(state, batch)
+    metrics = [m]
+    for _ in range(CONTRAST_STEPS):
+        state, m = contrast(state, batch, SELECT_RATIO)
+        metrics.append(m)
+    ev = evaluate(state, batch)
+    torch.cuda.synchronize()
+    launches = {"proto_tail": k3.proto_tail.launches,
+                "knn_vote": k2.knn_vote.launches}
+    print(f"training path: 1 warmup + {CONTRAST_STEPS} contrast steps at "
+          f"B={TRAIN_BATCH}, select ratio {SELECT_RATIO}, then the KNN eval "
+          f"step; launches {launches}")
+    check(launches["proto_tail"] >= CONTRAST_STEPS,
+          f"K3 did not run on every contrast step: {launches}")
+    check(launches["knn_vote"] >= 1, f"K2 did not run in eval: {launches}")
+
+    for i, m in enumerate(metrics):
+        losses = {k: float(v) for k, v in m["losses"].items()}
+        print(f"step {i}: losses {losses}" + (
+            f", diag { {k: float(v) for k, v in m['diag'].items()} }"
+            if "diag" in m else ""))
+        check(all(np.isfinite(v) for v in losses.values()),
+              f"step {i}: a loss is not finite: {losses}")
+        check(int(m["confusion"].sum()) == n_valid,
+              f"step {i}: confusion sums to {int(m['confusion'].sum())}, "
+              f"not {n_valid} valid points")
+    check(int(ev["confusion"].sum()) == n_valid, "eval confusion count")
+    moved = float((state.prototypes - protos0).abs().max())
+    norm_err = float((state.prototypes.norm(dim=-1) - 1).abs().max())
+    changed = sum(not torch.equal(a, b.detach()) for a, b in
+                  zip(params0, state.model.parameters()))
+    print(f"memory moved by {moved:.3e}, unit norm within {norm_err:.1e}; "
+          f"{changed} of {len(params0)} parameter tensors changed; eval "
+          f"confusion counts {int(ev['confusion'].sum())} points")
+    check(moved > 0, "the prototype memory did not move")
+    check(norm_err <= 1e-5, f"memory rows off unit norm by {norm_err}")
+    check(changed > 0, "no parameter changed")
+    return state, batch, host, launches
+
+
+def train_cpu_vs_card(cfg, dev, host):
+    """Phase 7: one float32 contrast step on one scan, CPU vs card."""
+    import torch
+
+    from coarse3d_tpu_torch.train.setup import build_alpha, build_state
+    from coarse3d_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32", dropout_rate=0.0))
+    one = {k: v[:1] for k, v in host.items()}
+    h, w = cfg.sensor.proj_h, cfg.sensor.proj_w
+    c, m, k = (cfg.data.n_classes, cfg.contrast.max_pixels_per_class,
+               cfg.contrast.sub_proto_size)
+    rng = np.random.default_rng(7)
+
+    def gumbel(shape):
+        u = np.maximum(rng.random(shape, dtype=np.float32),
+                       np.finfo(np.float32).tiny)
+        return -np.log(-np.log(u))
+
+    noise = {"select": gumbel((h * w,)),
+             "anchor": rng.random((1, c, cfg.contrast.num_anchor),
+                                  dtype=np.float32),
+             "proto": gumbel((c, m, k))}
+    out = {}
+    for where in ("cpu", dev):
+        state = build_state(cfg32, device=where, seed=0, steps_per_epoch=100)
+        step = make_train_step(cfg32, build_alpha(cfg32), with_contrast=True)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_to_device(one, torch.device(where)),
+                              SELECT_RATIO, noise)
+        losses = {name: float(v) for name, v in metrics["losses"].items()}
+        out[str(where)] = (losses, state.prototypes.cpu(),
+                           time.perf_counter() - t0)
+    (cpu_l, cpu_p, cpu_s), (card_l, card_p, _) = out["cpu"], out[str(dev)]
+    rel = {name: abs(card_l[name] - cpu_l[name]) / max(abs(cpu_l[name]), 1e-12)
+           for name in ("focal", "lovasz", "contrast")}
+    proto_err = float((card_p - cpu_p).abs().max())
+    print(f"training CPU vs card float32 (TF32 off), one scan: CPU losses "
+          f"{cpu_l}, card losses {card_l}, relative gaps "
+          f"{ {name: f'{v:.2e}' for name, v in rel.items()} }, memory max abs "
+          f"err {proto_err:.3e} (CPU step {cpu_s:.1f} s)")
+    check(rel["focal"] <= 1e-3 and rel["lovasz"] <= 1e-3,
+          f"CPU vs card focal/Lovász gap {rel}")
+    check(rel["contrast"] <= 1e-2, f"CPU vs card contrast gap {rel}")
+    check(proto_err <= 1e-4, f"CPU vs card memory gap {proto_err}")
+
+
+def train_timings(cfg, dev, state, batch, tag):
+    """Phase 8: step and stage times of the training path."""
+    import torch
+
+    from coarse3d_tpu_torch.losses.contrast import contrast_mem_loss
+    from coarse3d_tpu_torch.losses.entropy_selection import (
+        entropy_based_selection,
+    )
+    from coarse3d_tpu_torch.losses.focal import focal_softmax_loss
+    from coarse3d_tpu_torch.losses.lovasz import lovasz_softmax_loss
+    from coarse3d_tpu_torch.models.prototypes import update_prototypes
+    from coarse3d_tpu_torch.train.setup import build_alpha
+    from coarse3d_tpu_torch.train.step import (
+        _prepare_inputs,
+        draw_noise,
+        make_train_step,
+    )
+
+    alpha = build_alpha(cfg)
+    contrast = make_train_step(cfg, alpha, with_contrast=True)
+    warm = make_train_step(cfg, alpha, with_contrast=False)
+    t_con = time_ms(lambda: contrast(state, batch, SELECT_RATIO),
+                    reps=TRAIN_REPS)
+    t_warm = time_ms(lambda: warm(state, batch), reps=TRAIN_REPS)
+    torch.cuda.reset_peak_memory_stats()
+    contrast(state, batch, SELECT_RATIO)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    model, ignore = state.model, cfg.train.ignore_cls
+    feats, label, _, wss, eval_mask = _prepare_inputs(batch, cfg)
+    x = feats.permute(0, 3, 1, 2).contiguous()
+    alpha_t = torch.from_numpy(alpha).to(dev)
+    b, h, w = label.shape
+    noise = draw_noise(state.generator, cfg, b, h, w)
+
+    def fwd_bwd():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        probs = model(x, return_feat=True)["probs"].permute(0, 2, 3, 1)
+        loss = (focal_softmax_loss(probs, label, alpha_t, wss)
+                + lovasz_softmax_loss(probs, label, ignore=ignore,
+                                      budget=cfg.train.lovasz_budget))
+        loss.backward()
+
+    with torch.no_grad():
+        out = model(x, return_feat=True)
+    probs = out["probs"].permute(0, 2, 3, 1)
+    emb = out["embedding"].permute(0, 2, 3, 1)
+    pseudo = entropy_based_selection(probs, wss, eval_mask, label,
+                                     SELECT_RATIO, noise["select"], ignore)
+    t_fwd_bwd = time_ms(fwd_bwd, reps=TRAIN_REPS)
+    for p in model.parameters():        # as the step does: every parameter
+        if p.grad is None:              # has a gradient for AdamW
+            p.grad = torch.zeros_like(p)
+    stages = {
+        "forward + backward (focal + Lovász)": t_fwd_bwd,
+        "entropy selection": time_ms(lambda: entropy_based_selection(
+            probs, wss, eval_mask, label, SELECT_RATIO, noise["select"],
+            ignore), reps=TRAIN_REPS),
+        "contrast loss (forward)": time_ms(lambda: contrast_mem_loss(
+            emb, probs, pseudo[0], pseudo[1], state.prototypes,
+            noise["anchor"], cfg.contrast, ignore), reps=TRAIN_REPS),
+        "prototype update (gather + K3)": time_ms(lambda: update_prototypes(
+            state.prototypes, emb, label, wss, noise["proto"], cfg.contrast,
+            ignore), reps=TRAIN_REPS),
+        "optimizer (AdamW + schedule)": time_ms(
+            lambda: state.optimizer.step(), reps=TRAIN_REPS),
+    }
+    lines = [
+        f"training contrast step B={TRAIN_BATCH}: {t_con:.3f} ms, "
+        f"{TRAIN_BATCH * 1e3 / t_con:.2f} scans/s; warmup step {t_warm:.3f} "
+        f"ms; peak memory {peak_gb:.2f} GB (one contrast step)",
+        "training stages B=%d: " % TRAIN_BATCH + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stages.items()),
+    ]
+    for line in lines:
+        print(f"timing {tag} {line}")
+
+
 def main() -> int:
     import torch
 
@@ -162,6 +403,7 @@ def main() -> int:
     from coarse3d_tpu_torch.eval.inference import make_inference_fn
     from coarse3d_tpu_torch.ops import knn_vote as k2
     from coarse3d_tpu_torch.ops import proj_scatter as k1
+    from coarse3d_tpu_torch.ops import proto_update as k3
     from coarse3d_tpu_torch.ops._build import build_all
     from coarse3d_tpu_torch.ops.knn import knn_postprocess, pack_range_image
     from coarse3d_tpu_torch.ops.projection import (
@@ -180,10 +422,10 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build_all([k1.LIBRARY, k2.LIBRARY])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, both sources "
+    build_all([k1.LIBRARY, k2.LIBRARY, k3.LIBRARY])
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, three sources "
           "at once)")
-    for lib in (k1.LIBRARY, k2.LIBRARY):
+    for lib in (k1.LIBRARY, k2.LIBRARY, k3.LIBRARY):
         if os.path.exists(lib.log_path):
             with open(lib.log_path) as f:
                 for line in f:
@@ -247,6 +489,52 @@ def main() -> int:
     print(f"K2 knn_vote B={BATCH} P={prange.shape[1]} C={n_classes} "
           f"k={knn_cfg.knn} S={knn_cfg.search}: kernel == twin exactly")
     del proj, packed, got, want
+
+    # -- 3b. K3 ------------------------------------------------------------
+    feat3, valid3, protos3, gumbel3 = k3_case(dev)
+    kw3 = dict(momentum=0.999, ignore_cls=0)
+    got = k3.proto_tail(feat3, valid3, protos3, gumbel3, **kw3)
+    want = k3.proto_tail_reference(feat3, valid3, protos3, gumbel3, **kw3)
+    torch.cuda.synchronize()
+    k3_err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "K3 output holds NaN/inf")
+    check(k3_err <= 2e-5, f"K3 vs twin at momentum 0.999: {k3_err} > 2e-5")
+    l2_mem = protos3 / protos3.norm(dim=-1, keepdim=True)
+    empty_err = float((got[:2] - l2_mem[:2]).abs().max())
+    check(empty_err <= 1e-6, f"K3 empty/ignore classes moved: {empty_err}")
+    got0 = k3.proto_tail(feat3, valid3, protos3, gumbel3, momentum=0.0,
+                         ignore_cls=0)
+    want0 = k3.proto_tail_reference(feat3, valid3, protos3, gumbel3,
+                                    momentum=0.0, ignore_cls=0)
+    torch.cuda.synchronize()
+    row_err = (got0 - want0).abs().amax(dim=-1)                # (C, K)
+    rows_out = int((row_err > 1e-4).sum())
+    check(bool(torch.isfinite(got0).all()), "K3 output holds NaN/inf (m=0)")
+    check(rows_out <= 0.05 * row_err.numel(),
+          f"K3 vs twin at momentum 0: {rows_out} of {row_err.numel()} rows "
+          "off by > 1e-4")
+    n3 = int(valid3.sum())
+    c3, m3, d3 = feat3.shape
+    kk3 = protos3.shape[1]
+    print(f"K3 proto_tail C={c3} M={m3} K={kk3} D={d3}, {n3} valid rows: "
+          f"momentum 0.999 max abs err {k3_err:.3e}; momentum 0 max abs err "
+          f"{float(row_err.max()):.3e}, {rows_out} of {row_err.numel()} rows "
+          f"off by > 1e-4; empty classes err {empty_err:.1e}")
+    k3_ms = time_ms(lambda: k3.proto_tail(feat3, valid3, protos3, gumbel3,
+                                          **kw3))
+    k3_plain = time_ms(lambda: k3.proto_tail_reference(
+        feat3, valid3, protos3, gumbel3, **kw3))
+    # float32 work this run's valid rows need: LayerNorm + l2 aside, the
+    # similarity to all C*K prototypes, the own-class block, and one add
+    # of each contributing row into its sub-prototype
+    k3_ops = 2 * n3 * c3 * kk3 * d3 + 2 * n3 * kk3 * d3 + n3 * d3
+    k3_bytes = (4 * n3 * (d3 + kk3) + valid3.numel()
+                + 2 * protos3.numel() * 4)
+    k3_ops_ms = k3_ops / FP32_OPS_PER_S * 1e3
+    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3_bound = max(k3_ops_ms, k3_bytes_ms)
+    k3_by = "operations" if k3_ops_ms >= k3_bytes_ms else "bytes"
+    del feat3, valid3, protos3, gumbel3, got, want, got0, want0
 
     # -- 4. the serving path -------------------------------------------------
     state = calibrated_state(cfg, host[0][0][:2], host[0][1][:2])
@@ -360,8 +648,18 @@ def main() -> int:
         f"end to end B={BATCH} (device-resident scans): {t_batch:.3f} "
         f"ms/batch, {BATCH * 1e3 / t_batch:.2f} scans/s, peak memory "
         f"{peak_gb:.2f} GB",
+        f"K3 proto_tail: kernel {k3_ms:.4f} ms, twin {k3_plain:.4f} ms, "
+        f"bound {k3_bound:.4f} ms ({k3_ops / 1e9:.3f} G float32 ops at 67 "
+        f"TFLOP/s: {k3_ops_ms:.4f} ms; {k3_bytes / 1e6:.1f} MB at 3.35 TB/s: "
+        f"{k3_bytes_ms:.4f} ms); library: none (no single PyTorch call "
+        "computes it)",
     ):
         print(f"timing {tag} {line}")
+
+    # -- 6-8. the training path ----------------------------------------------
+    state, tbatch, thost, train_launches = train_phase(cfg, dev)
+    train_cpu_vs_card(cfg, dev, thost)
+    train_timings(cfg, dev, state, tbatch, tag)
 
     kernels = [
         {"name": "proj_scatter_min", "route": "cuda",
@@ -376,6 +674,12 @@ def main() -> int:
          "launches": launches["knn_vote"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "proto_tail", "route": "cuda",
+         "source": "coarse3d_tpu_torch/csrc/proto_update.cu",
+         "replaces": "coarse3d_tpu/ops/pallas/proto_update.py:40",
+         "launches": train_launches["proto_tail"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Synthetic LiDAR scan fixtures (the port's copy of the JAX package's
-``data/synthetic.py``: ``synthetic_scan`` with uniform angles, and
-``pad_points``).
+``data/synthetic.py``: ``synthetic_scan`` with uniform angles,
+``synthetic_batch`` and ``pad_points``).
 
-The same numpy generator state gives the same scan in both packages, so a
-test or a smoke run can feed one scan to both.
+The same numpy generator state gives the same scan, and the same training
+batch, in both packages, so a test or a smoke run can feed one batch to
+both.
 """
 
 from __future__ import annotations
@@ -53,6 +54,58 @@ def synthetic_scan(
     weak_idx = rng.choice(n_points, size=n_weak, replace=False)
     weak[weak_idx] = labels[weak_idx]
     return {"points": points, "labels": labels, "weak_labels": weak}
+
+
+def synthetic_batch(
+    rng: np.random.Generator,
+    cfg,
+    batch_size: int,
+    n_points: int = 20000,
+    weak_ratio: float = 0.002,
+) -> dict[str, np.ndarray]:
+    """Training batch dict exactly as the data pipeline emits it.
+
+    Keys: features (B,H,W,5) raw feature image, train_label / eval_label
+    (B,H,W) int32, point_px / point_py (B,P) int32, point_depth (B,P)
+    float32 (-1 on padding), point_label / point_weak_label (B,P) int32,
+    point_valid (B,P) bool. Projection on the host (numpy), as the pipeline
+    does it.
+    """
+    import torch
+
+    from coarse3d_tpu_torch.ops import projection
+
+    sensor = cfg.sensor
+    max_points = cfg.data.max_points
+    out = {k: [] for k in (
+        "features", "train_label", "eval_label", "point_px", "point_py",
+        "point_depth", "point_label", "point_weak_label", "point_valid")}
+    for _ in range(batch_size):
+        scan = synthetic_scan(
+            rng, n_points, cfg.data.n_classes, sensor, weak_ratio)
+        proj = projection.range_project_np(scan["points"], sensor)
+        feats = projection.build_range_features(
+            torch.from_numpy(proj["proj_points"]),
+            torch.from_numpy(proj["proj_range"])).numpy()
+        out["features"].append(feats)
+        out["eval_label"].append(
+            projection.scatter_labels_np(proj["proj_idx"], scan["labels"]))
+        out["train_label"].append(
+            projection.scatter_labels_np(
+                proj["proj_idx"], scan["weak_labels"]))
+        px, pv = pad_points(proj["px"], max_points)
+        depth, _ = pad_points(proj["depth"].astype(np.float32), max_points,
+                              fill=-1.0)
+        py, _ = pad_points(proj["py"], max_points)
+        lbl, _ = pad_points(scan["labels"], max_points)
+        wlbl, _ = pad_points(scan["weak_labels"], max_points)
+        out["point_px"].append(px)
+        out["point_py"].append(py)
+        out["point_depth"].append(depth)
+        out["point_label"].append(lbl)
+        out["point_weak_label"].append(wlbl)
+        out["point_valid"].append(pv)
+    return {k: np.stack(v) for k, v in out.items()}
 
 
 def pad_points(

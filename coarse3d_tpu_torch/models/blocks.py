@@ -9,10 +9,11 @@ reference's salsanext_proto.py — ResContextBlock (:38-65), ResBlock
 ``load_state_dict(strict=True)``.
 
 Flax -> PyTorch: BatchNorm momentum 0.9 (Flax, weight of the old value) is
-PyTorch momentum 0.1, eps 1e-5; "SAME" 3x3 with dilation 2 is padding 2;
-the 2x2 kernel with dilation 2 takes an explicit pad of 1 (an effective
-3x3 that keeps the size); dropout drops whole channels (Dropout2d, the
-JAX ``broadcast_dims=(1, 2)``).
+PyTorch momentum 0.1, eps 1e-5, and in training the running variance
+takes the biased batch variance, as Flax's does (:class:`BatchNorm2d`);
+"SAME" 3x3 with dilation 2 is padding 2; the 2x2 kernel with dilation 2
+takes an explicit pad of 1 (an effective 3x3 that keeps the size); dropout
+drops whole channels (Dropout2d, the JAX ``broadcast_dims=(1, 2)``).
 """
 
 from __future__ import annotations
@@ -30,11 +31,40 @@ def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     return F.pixel_shuffle(x, r)
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward folds the BIASED batch
+    variance into ``running_var``, as Flax's ``nn.BatchNorm`` folds it into
+    ``batch_stats.var``. PyTorch folds the unbiased one (n / (n - 1) times
+    larger), so the two drift apart by 1/(n - 1) of the variance per step.
+
+    The normalisation itself is PyTorch's (biased batch variance, as in
+    Flax). PyTorch's update of the variance, (1 - m) old + m var_unbiased,
+    is rescaled in its m-term by (n - 1) / n to (1 - m) old + m var_biased,
+    with no second pass over the activations.
+    Parameter and buffer names are those of ``nn.BatchNorm2d``.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        # PyTorch's update goes into a copy: the graph keeps what the op
+        # saw, and running_var is then written once, corrected
+        folded = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, folded, self.weight,
+                         self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_((folded - kept) * ((n - 1) / n) + kept)
+        return y
 
 
-def conv_act_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d
+def _bn(features: int) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+def conv_act_bn(x: torch.Tensor, conv: nn.Conv2d, bn: BatchNorm2d
                 ) -> torch.Tensor:
     """conv -> leaky_relu -> batchnorm, the reference's recurring triplet
     (the JAX ``ConvActBN`` module; here the conv and the BN stay attributes

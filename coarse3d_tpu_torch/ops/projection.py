@@ -8,6 +8,10 @@ RangeProjection.doProjection (preprocess/projection.py:43-115): depth =
 floor + clamp to W x H pixel coords; the *nearest* point wins each pixel,
 ties to the lowest point index.
 
+``range_project_np`` and ``scatter_labels_np`` are the port's copies of the
+JAX package's numpy host path (the data pipeline's projection, which the
+synthetic training batch uses): the same numpy inputs give the same arrays.
+
 The per-pixel winner is kernel K1 (:func:`ops.proj_scatter.scatter_min`)
 on a CUDA tensor and its plain twin on a CPU tensor; the winner-row gather
 and the coordinate math stay plain tensor ops, as they stayed XLA outside
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from coarse3d_tpu_torch.configs.config import SensorSpec
@@ -44,6 +49,72 @@ def pixel_coords(xyz: torch.Tensor, depth: torch.Tensor, sensor: SensorSpec
     px = torch.clamp(torch.floor(proj_x), 0, sensor.proj_w - 1).to(torch.int32)
     py = torch.clamp(torch.floor(proj_y), 0, sensor.proj_h - 1).to(torch.int32)
     return px, py
+
+
+def pixel_coords_np(xyz: np.ndarray, depth: np.ndarray, sensor: SensorSpec
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Numpy twin of :func:`pixel_coords` (the JAX package's host path)."""
+    fov_down, fov_vert, fov_left, fov_hori = _fov_params(sensor)
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    yaw = -np.arctan2(y, x)
+    pitch = np.arcsin(np.clip(z / np.maximum(depth, 1e-12), -1.0, 1.0))
+    proj_x = (yaw + abs(fov_left)) / fov_hori * sensor.proj_w
+    proj_y = (1.0 - (pitch + abs(fov_down)) / fov_vert) * sensor.proj_h
+    px = np.clip(np.floor(proj_x), 0, sensor.proj_w - 1).astype(np.int32)
+    py = np.clip(np.floor(proj_y), 0, sensor.proj_h - 1).astype(np.int32)
+    return px, py
+
+
+def range_project_np(
+    points: np.ndarray,
+    sensor: SensorSpec,
+    depth: np.ndarray | None = None,
+    mask_excludes_point0: bool = True,
+) -> dict[str, np.ndarray]:
+    """Project an (N, C>=3) cloud to an (H, W) range image on the host,
+    nearest wins (the reference's descending-depth last-writer-wins)."""
+    if depth is None:
+        depth = np.linalg.norm(points[:, :3], 2, axis=1)
+    if sensor.max_depth > 0:
+        depth = np.minimum(depth, sensor.max_depth)
+    px, py = pixel_coords_np(points[:, :3], depth, sensor)
+
+    h, w = sensor.proj_h, sensor.proj_w
+    order = np.argsort(depth, kind="stable")[::-1]
+
+    proj_range = np.full((h, w), -1.0, dtype=np.float32)
+    proj_range[py[order], px[order]] = depth[order]
+
+    proj_points = np.full((h, w, points.shape[1]), -1.0, dtype=np.float32)
+    proj_points[py[order], px[order]] = points[order]
+
+    proj_idx = np.full((h, w), -1, dtype=np.int32)
+    proj_idx[py[order], px[order]] = np.arange(len(points))[order]
+
+    if mask_excludes_point0:
+        proj_mask = (proj_idx > 0).astype(np.int32)
+    else:
+        proj_mask = (proj_idx >= 0).astype(np.int32)
+
+    return {
+        "proj_points": proj_points,
+        "proj_range": proj_range,
+        "proj_idx": proj_idx,
+        "proj_mask": proj_mask,
+        "px": px,
+        "py": py,
+        "depth": depth.astype(np.float32),
+    }
+
+
+def scatter_labels_np(proj_idx: np.ndarray, point_labels: np.ndarray
+                      ) -> np.ndarray:
+    """Per-point labels scattered to the image through the projection index
+    map (wss_sem_kitti_loader.py:124-132): empty pixels get label 0."""
+    out = np.zeros(proj_idx.shape, dtype=np.int32)
+    hit = proj_idx > -1
+    out[hit] = point_labels[proj_idx[hit]]
+    return out
 
 
 def scatter_inputs(points: torch.Tensor, valid: torch.Tensor,

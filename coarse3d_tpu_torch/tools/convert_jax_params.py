@@ -14,6 +14,10 @@ The entry table is the port's own copy of the JAX package's
 the JAX package); ``tests/test_torch_salsanext.py`` holds the output equal,
 key for key, to that module's ``export_state_dict``.
 
+``train_state_from_jax`` carries a whole JAX training state across: the
+model state dict, the prototype memory, the step and AdamW's moments, for
+``train/state.py:TrainState.load``.
+
 ``load_reference_state_dict`` reads a reference-named ``.pth`` (the
 reference's own checkpoints, or ``torch.save(model.state_dict())`` of the
 port) for ``tools/infer.py --weights``.
@@ -71,34 +75,92 @@ def _get(tree, path):
     return tree
 
 
-def state_dict_from_jax(variables, net_type: str = "salsanext"
-                        ) -> dict[str, torch.Tensor]:
-    """JAX ``{"params", "batch_stats"}`` -> port state dict (float32 CPU
-    tensors). Raises KeyError naming the first layer the variables lack."""
+def _check_net(net_type: str) -> None:
     if net_type != "salsanext":
         raise NotImplementedError(
             f"net_type={net_type!r} is not ported yet (ROADMAP.md Queue 1 "
             "item 17); only 'salsanext' is")
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
 
-    def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
 
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def params_from_jax(params) -> dict[str, torch.Tensor]:
+    """A tree laid out like the JAX SalsaNext ``params`` (the params
+    themselves, or optax moments of them) -> port parameter names."""
     sd: dict[str, torch.Tensor] = {}
     for kind, t, path in salsanext_entries():
         node = _get(params, path)
         if kind == "conv":
-            sd[f"{t}.weight"] = tensor(
+            sd[f"{t}.weight"] = _tensor(
                 np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
             if "bias" in node:
-                sd[f"{t}.bias"] = tensor(node["bias"])
+                sd[f"{t}.bias"] = _tensor(node["bias"])
         else:
-            sd[f"{t}.weight"] = tensor(node["scale"])
-            sd[f"{t}.bias"] = tensor(node["bias"])
-            sd[f"{t}.running_mean"] = tensor(_get(stats, path)["mean"])
-            sd[f"{t}.running_var"] = tensor(_get(stats, path)["var"])
+            sd[f"{t}.weight"] = _tensor(node["scale"])
+            sd[f"{t}.bias"] = _tensor(node["bias"])
     return sd
+
+
+def state_dict_from_jax(variables, net_type: str = "salsanext"
+                        ) -> dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` -> port state dict (float32 CPU
+    tensors). Raises KeyError naming the first layer the variables lack."""
+    _check_net(net_type)
+    params = params_from_jax(variables["params"])
+    stats = variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    for kind, t, path in salsanext_entries():
+        for name in ("weight", "bias"):
+            if f"{t}.{name}" in params:
+                sd[f"{t}.{name}"] = params[f"{t}.{name}"]
+        if kind == "bn":
+            sd[f"{t}.running_mean"] = _tensor(_get(stats, path)["mean"])
+            sd[f"{t}.running_var"] = _tensor(_get(stats, path)["var"])
+    return sd
+
+
+def _adam_moments(opt_state):
+    """The (count, mu, nu) of the Adam transform inside an optax chain: the
+    one node of the state tree with ``mu`` and ``nu`` fields."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_moments(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, net_type: str = "salsanext") -> dict:
+    """The JAX package's ``TrainState`` (its fields: ``params``,
+    ``batch_stats``, ``opt_state`` of ``optax.adamw``, ``prototypes``,
+    ``step``) -> what the port's ``TrainState.load`` takes:
+
+      {"model": state dict, "prototypes": (C, K, D) tensor, "step": int,
+       "optimizer": {param name: {"exp_avg", "exp_avg_sq", "step"}}}
+
+    Adam's ``mu`` / ``nu`` are laid out like the params, so they go through
+    the same mapping (conv kernels (kh, kw, I, O) -> (O, I, kh, kw)).
+    """
+    _check_net(net_type)
+    adam = _adam_moments(state.opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no Adam moments (mu, nu)")
+    mu = params_from_jax(adam.mu)
+    nu = params_from_jax(adam.nu)
+    count = int(np.asarray(adam.count))
+    return {
+        "model": state_dict_from_jax(
+            {"params": state.params, "batch_stats": state.batch_stats},
+            net_type),
+        "prototypes": _tensor(state.prototypes),
+        "step": int(np.asarray(state.step)),
+        "optimizer": {name: {"exp_avg": mu[name], "exp_avg_sq": nu[name],
+                             "step": count} for name in mu},
+    }
 
 
 # reference-model entries the port's SalsaNext has no counterpart for: the

@@ -1,5 +1,11 @@
-"""Model wiring (``build_model``), the port of the JAX package's
-``train/setup.py:build_model`` for the SalsaNext parity model.
+"""Experiment wiring: model, optimizer, focal alpha and training state,
+the port of the JAX package's ``train/setup.py`` for the SalsaNext parity
+model.
+
+AdamW matches the reference's ``torch.optim.AdamW(params, lr)``: torch's
+default weight decay 0.01 applies there (the YAML weight_decay is unused,
+PARITY.md defect #5), on every parameter, BatchNorm scales and biases
+included, as ``optax.adamw`` applies it in the JAX package.
 
 The other backbones (``rangenet``, ``squeezesegv3``) and the space-to-depth
 stems (``s2d``, ``s2d_w``) are not ported yet: ROADMAP.md Queue 1 item 17.
@@ -12,9 +18,18 @@ import math
 import torch
 import torch.nn as nn
 
+import numpy as np
+
 from coarse3d_tpu_torch.configs.config import ExperimentConfig
 from coarse3d_tpu_torch.device import resolve_device
+from coarse3d_tpu_torch.losses.focal import focal_alpha_from_counts
 from coarse3d_tpu_torch.models.salsanext import SalsaNext
+from coarse3d_tpu_torch.train.schedule import (
+    Schedule,
+    lr_lambda,
+    warmup_cosine_schedule,
+)
+from coarse3d_tpu_torch.train.state import TrainState, init_prototypes
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -66,3 +81,51 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda",
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def build_optimizer(cfg: ExperimentConfig, params, steps_per_epoch: int
+                    ) -> tuple[torch.optim.AdamW,
+                               torch.optim.lr_scheduler.LambdaLR, Schedule]:
+    """AdamW (weight decay ``cfg.train.weight_decay`` on every parameter)
+    with the per-iteration warmup-cosine schedule; call ``scheduler.step()``
+    after each ``optimizer.step()``."""
+    schedule = warmup_cosine_schedule(
+        cfg.train.lr,
+        warmup_steps=cfg.train.warmup_epochs * steps_per_epoch,
+        total_steps=cfg.train.n_epochs * steps_per_epoch,
+    )
+    opt = torch.optim.AdamW(params, lr=cfg.train.lr, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=cfg.train.weight_decay)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lr_lambda(schedule, cfg.train.lr))
+    return opt, sched, schedule
+
+
+def build_alpha(cfg: ExperimentConfig) -> np.ndarray:
+    counts = cfg.data.cls_counts or tuple(
+        [0.0] + [1.0] * (cfg.data.n_classes - 1))
+    return focal_alpha_from_counts(counts, ignore_cls=cfg.train.ignore_cls)
+
+
+def build_state(
+    cfg: ExperimentConfig,
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+    steps_per_epoch: int = 1000,
+    batch_size: int | None = None,
+) -> TrainState:
+    """Model (weights from ``seed``), optimizer + schedule, prototype memory
+    (truncated normal from ``seed + 1``) and a generator on ``device``
+    seeded with ``seed + 2`` for the step's noise. ``batch_size`` is taken
+    for the JAX signature's sake: torch modules need no input shape."""
+    del batch_size
+    dev = resolve_device(device)
+    model = build_model(cfg, device=dev, seed=seed)
+    opt, sched, _ = build_optimizer(cfg, model.parameters(), steps_per_epoch)
+    protos = init_prototypes(torch.Generator().manual_seed(seed + 1),
+                             cfg.data.n_classes, cfg.contrast.sub_proto_size,
+                             cfg.contrast.proj_dim)
+    return TrainState(model=model, optimizer=opt, scheduler=sched,
+                      prototypes=protos.to(dev), step=0,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          seed + 2))

@@ -61,13 +61,14 @@ def test_sources_name_no_jax():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "build_model", "infer"])
+@pytest.mark.parametrize("entry", ["resolve_device", "build_model", "infer",
+                                   "build_state"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With device left at its default, an entry point raises without a
     card; device='cpu' runs."""
     from coarse3d_tpu_torch.configs import preset
     from coarse3d_tpu_torch.device import resolve_device
-    from coarse3d_tpu_torch.train.setup import build_model
+    from coarse3d_tpu_torch.train.setup import build_model, build_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = preset("tiny")
@@ -78,6 +79,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         def call():
             return build_model(cfg)
         assert build_model(cfg, device="cpu") is not None
+    elif entry == "build_state":
+        def call():
+            return build_state(cfg)
+        assert build_state(cfg, device="cpu").prototypes.device.type == "cpu"
     else:
         from coarse3d_tpu_torch.tools.infer import main
 
@@ -133,6 +138,44 @@ def test_data_copies_match_jax(tmp_path):
                                   jrd.read_kitti_scan(str(path)))
     np.testing.assert_array_equal(trd.read_nuscenes_scan(str(path)),
                                   jrd.read_nuscenes_scan(str(path)))
+
+
+def test_training_data_copies_match_jax():
+    """synthetic_batch on the same seed, the host projection
+    (range_project_np, both mask conventions, a doctored depth) and
+    scatter_labels_np, and focal_alpha_from_counts: equal to the originals."""
+    from coarse3d_tpu.data import synthetic as jsyn
+    from coarse3d_tpu.losses import focal as jfocal
+    from coarse3d_tpu.ops import projection as jproj
+    from coarse3d_tpu_torch.configs import preset
+    from coarse3d_tpu_torch.data import synthetic as tsyn
+    from coarse3d_tpu_torch.losses import focal as tfocal
+    from coarse3d_tpu_torch.ops import projection as tproj
+
+    for name in ("tiny", "poss"):
+        cfg = preset(name)
+        got = tsyn.synthetic_batch(np.random.default_rng(2), cfg, 2,
+                                   n_points=3000, weak_ratio=0.01)
+        want = jsyn.synthetic_batch(np.random.default_rng(2), cfg, 2,
+                                    n_points=3000, weak_ratio=0.01)
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    sensor = preset("kitti").sensor
+    scan = tsyn.synthetic_scan(np.random.default_rng(3), 4000, 20, sensor)
+    depth = np.random.default_rng(4).uniform(1, 50, 4000)
+    for kw in ({}, {"mask_excludes_point0": False}, {"depth": depth}):
+        got = tproj.range_project_np(scan["points"], sensor, **kw)
+        want = jproj.range_project_np(scan["points"], sensor, **kw)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(
+        tproj.scatter_labels_np(got["proj_idx"], scan["labels"]),
+        jproj.scatter_labels_np(got["proj_idx"], scan["labels"]))
+    for counts in (preset("kitti").data.cls_counts, (0.0, 1.0, 5.0)):
+        np.testing.assert_array_equal(tfocal.focal_alpha_from_counts(counts),
+                                      jfocal.focal_alpha_from_counts(counts))
 
 
 def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):

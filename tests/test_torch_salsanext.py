@@ -152,3 +152,42 @@ def test_load_reference_state_dict_unwraps(tmp_path):
     loaded = load_reference_state_dict(str(path))
     assert set(loaded) == set(sd)
     SalsaNext(n_classes=C, proj_dim=PROJ).load_state_dict(loaded, strict=True)
+
+
+def test_train_forward_running_stats_match_flax(tiny):
+    """One train-mode forward folds the batch statistics into the running
+    ones as Flax does: the BIASED batch variance into the variance (plain
+    ``torch.nn.BatchNorm2d`` folds the unbiased one, 5e-5 relative off at
+    this size). Dropout is 0 on both sides: Flax's dropout stream cannot be
+    reproduced. rtol 1e-5 on both; the mean also gets atol 1e-5 (2e-5 of
+    its 0.5 scale): a running mean can sit near 0, where 30 layers of float
+    noise in the forward leave it up to 1e-6 off in absolute terms."""
+    _, variables = tiny
+    jmodel = JaxSalsaNext(n_classes=C, proj_dim=PROJ, dtype=jnp.float32,
+                          dropout_rate=0.0)
+    # 32x128 keeps 32 samples per channel in the deepest block, where the
+    # unbiased fold is 1/31 of the batch term off; at 16x64 (8 samples)
+    # float noise of the forward alone reaches 1.6e-5 there
+    x = np.random.default_rng(11).normal(size=(2, 32, 128, 5)).astype(
+        np.float32)
+    _, mutated = jmodel.apply(variables, jnp.asarray(x), train=True,
+                              return_feat=True, mutable=["batch_stats"],
+                              rngs={"dropout": jax.random.key(0)})
+    want = state_dict_from_jax({"params": variables["params"],
+                                "batch_stats": mutated["batch_stats"]})
+    model = _port(variables, dropout_rate=0.0).train()
+    with torch.no_grad():
+        model(torch.from_numpy(x).permute(0, 3, 1, 2), return_feat=True)
+    got = model.state_dict()
+    worst = {"running_mean": 0.0, "running_var": 0.0}
+    for k, w in want.items():
+        kind = k.rsplit(".", 1)[1]
+        if kind not in worst:
+            continue
+        g, w = got[k].numpy(), w.numpy()
+        worst[kind] = max(worst[kind],
+                          float(np.max(np.abs(g - w) / np.abs(w))))
+        np.testing.assert_allclose(
+            g, w, rtol=1e-5, atol=1e-5 if kind == "running_mean" else 0,
+            err_msg=k)
+    print(f"max relative error {worst}")
