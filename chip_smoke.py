@@ -8,13 +8,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. builds the port's CUDA kernels from csrc/ with nvcc (all at once);
 2. K1 (projection scatter-min) at KITTI size (B=16 scans of 120k points
    padded to 150k, 64x2048 images), kernel vs its plain twin: exact;
-3. K2 (KNN vote) on the same projection, 20 classes: kernel vs twin: exact;
+3. K2 (KNN vote) on the same projection, 20 classes, in two point orders
+   (the scans' random order, and each scan sorted by flat pixel, the ring
+   order of a real scan): kernel vs twin: exact in both;
 3b. K3 (prototype Sinkhorn/EMA tail) at KITTI training shapes (C=20,
    M=2048, K=20, D=256; an empty ignore class, one more empty class, one
    full class, random counts elsewhere), kernel vs twin: max abs error
    <= 2e-5 at momentum 0.999; >= 0.95 of the (C, K) rows within 1e-4 at
    momentum 0 (a rare argmax flip moves a whole row); no NaN; the empty
-   classes keep l2(memory);
+   classes keep l2(memory); two runs bit-identical; each pass timed alone;
 4. the serving path: SalsaNext (parity stem, full width, bf16 compute,
    seeded random weights, BatchNorm statistics calibrated on two scans so
    the label map is not constant) answers 3 batches of 16 scans through
@@ -31,6 +33,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``make_eval_step(use_knn=True)``; K3 and K2 launched in that run, every
    loss finite, the memory moved and stays unit-norm, the parameters
    changed, each confusion matrix counts every valid point;
+6b. K3 again, at the size the training path gives it: the rows, valid
+   mask and memory that ``update_prototypes``'s gather makes of phase 6's
+   batch (embedding from an eval-mode forward of the trained state), the
+   step's Gumbel noise; the same gates as 3b;
 7. one float32 contrast step on one scan, CPU vs card (TF32 off, dropout
    0, same state, batch and noise): focal and Lovász within 1e-3
    relative, contrast within 1e-2 (an anchor draw may fall on the other
@@ -38,8 +44,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. training timings (CUDA events, median of 10 after warm-up): the
    contrast and warmup steps, their stages, peak memory.
 
+The build fails the run if ptxas reports a spill in K2's or K3's kernels.
 It prints the card's name and power limit (nvidia-smi), one line per timing
-tagged with them, a ``{"kernels": [...]}`` line, and last
+tagged with them, a ``{"kernels": [...]}`` line (K2's time in both point
+orders, K3's at both sizes and per pass, beside the common fields), and last
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX; the port's
 JAX reference is only named, in the ``replaces`` fields.
 """
@@ -134,6 +142,7 @@ def calibrated_state(cfg, points, valid):
     CPU-vs-card comparison see a real label map."""
     import torch
 
+    from coarse3d_tpu_torch.models.blocks import Dropout2d
     from coarse3d_tpu_torch.ops.projection import (
         build_range_features,
         normalize_features,
@@ -147,7 +156,7 @@ def calibrated_state(cfg, points, valid):
     for mod in model.modules():
         if isinstance(mod, torch.nn.BatchNorm2d):
             mod.momentum = 1.0          # running stats := this batch's
-        elif isinstance(mod, torch.nn.Dropout2d):
+        elif isinstance(mod, Dropout2d):
             mod.p = 0.0
     proj = range_project_batch(torch.from_numpy(points),
                                torch.from_numpy(valid), cfg.sensor)
@@ -171,6 +180,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_report(log_path: str):
+    """(kernel, registers line, spill line) for each entry function of an
+    nvcc -Xptxas=-v log."""
+    import re
+
+    out, func, spill = [], None, ""
+    if not os.path.exists(log_path):
+        return out
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                # the kernel's own name, and its template arguments, out of
+                # the mangled one
+                name = re.search(r"(row_pass|class_pass|live_tiles|tile_[a-z]+"
+                                 r"|scatter_min_keys|decode_keys)", m.group(1))
+                args = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+                func = (name.group(1) if name else m.group(1)) + (
+                    "<%s,%s>" % args.groups() if args else "")
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and func:
+                out.append((func, line.strip().replace("ptxas info    : ", ""),
+                            spill))
+                func = None
+    return out
+
+
+def pixel_sorted(prange, pxi, pyi, w: int):
+    """The same points with each scan sorted by flat pixel: the ring order
+    in which a real scan arrives."""
+    import torch
+
+    idx = torch.argsort(pyi.long() * w + pxi.long(), dim=1, stable=True)
+    return tuple(torch.gather(t, 1, idx).contiguous()
+                 for t in (prange, pxi, pyi))
+
+
 def k3_case(dev, seed: int = 3):
     """Seeded K3 inputs at KITTI training shapes: normal rows, a l2-normed
     memory, Gumbel noise; class 0 (ignore) and class 1 empty, class 2 full,
@@ -191,6 +238,87 @@ def k3_case(dev, seed: int = 3):
     counts[2] = m
     valid = torch.arange(m, device=dev)[None, :] < counts[:, None]
     return feat, valid, protos, gumbel
+
+
+def k3_training_case(cfg, dev, state, batch):
+    """Phase 6b's K3 inputs: what ``update_prototypes``'s gather makes of
+    the training batch, with the step's Gumbel noise."""
+    import torch
+
+    from coarse3d_tpu_torch.models.prototypes import gather_class_rows
+    from coarse3d_tpu_torch.train.step import _prepare_inputs, draw_noise
+
+    feats, label, _, wss, _ = _prepare_inputs(batch, cfg)
+    state.model.eval()
+    with torch.no_grad():
+        emb = state.model(feats.permute(0, 3, 1, 2).contiguous(),
+                          return_feat=True)["embedding"].permute(0, 2, 3, 1)
+    feat, valid, protos = gather_class_rows(
+        state.prototypes, emb, label, wss, cfg.contrast, cfg.train.ignore_cls)
+    b, h, w = label.shape
+    gumbel = draw_noise(state.generator, cfg, b, h, w)["proto"]
+    return feat, valid, protos, gumbel.contiguous()
+
+
+def k3_phase(k3, feat, valid, protos, gumbel, ignore, name, tag):
+    """K3 against its twin on one set of inputs: the gates of phase 3b,
+    two runs bit-identical; its time, its twin's, each pass alone, and the
+    bound this run's valid rows give."""
+    import torch
+
+    kw = dict(momentum=0.999, ignore_cls=ignore)
+    got = k3.proto_tail(feat, valid, protos, gumbel, **kw)
+    again = k3.proto_tail(feat, valid, protos, gumbel, **kw)
+    want = k3.proto_tail_reference(feat, valid, protos, gumbel, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"K3 {name}: NaN/inf")
+    check(torch.equal(got, again), f"K3 {name}: two runs differ")
+    check(err <= 2e-5, f"K3 {name} vs twin at momentum 0.999: {err} > 2e-5")
+    empty = [c for c in range(feat.shape[0])
+             if c == ignore or not bool(valid[c].any())]
+    l2_mem = protos / protos.norm(dim=-1, keepdim=True)
+    empty_err = float((got[empty] - l2_mem[empty]).abs().max())
+    check(empty_err <= 1e-6, f"K3 {name} empty/ignore classes moved: "
+          f"{empty_err}")
+    got0 = k3.proto_tail(feat, valid, protos, gumbel, momentum=0.0,
+                         ignore_cls=ignore)
+    want0 = k3.proto_tail_reference(feat, valid, protos, gumbel,
+                                    momentum=0.0, ignore_cls=ignore)
+    torch.cuda.synchronize()
+    row_err = (got0 - want0).abs().amax(dim=-1)                # (C, K)
+    rows_out = int((row_err > 1e-4).sum())
+    check(bool(torch.isfinite(got0).all()), f"K3 {name}: NaN/inf (m=0)")
+    check(rows_out <= 0.05 * row_err.numel(),
+          f"K3 {name} vs twin at momentum 0: {rows_out} of "
+          f"{row_err.numel()} rows off by > 1e-4")
+    n = int(valid.sum())
+    c, m, d = feat.shape
+    k = protos.shape[1]
+    print(f"K3 proto_tail {name}: C={c} M={m} K={k} D={d}, {n} valid rows "
+          f"in {len(empty)} empty/ignore and {c - len(empty)} other classes:"
+          f" momentum 0.999 max abs err {err:.3e}; momentum 0 max abs err "
+          f"{float(row_err.max()):.3e}, {rows_out} of {row_err.numel()} rows"
+          f" off by > 1e-4; empty classes err {empty_err:.1e}; two runs "
+          "bit-identical")
+    ms = time_ms(lambda: k3.proto_tail(feat, valid, protos, gumbel, **kw))
+    plain = time_ms(lambda: k3.proto_tail_reference(feat, valid, protos,
+                                                    gumbel, **kw))
+    run = k3.pass_timer(feat, valid, protos, gumbel, **kw)
+    passes = {"row": time_ms(lambda: run(0)), "class": time_ms(lambda: run(1))}
+    print(f"timing {tag} K3 passes alone, {name} ({n} valid rows): row pass "
+          f"{passes['row']:.4f} ms, class pass {passes['class']:.4f} ms")
+    # float32 work this run's valid rows need: LayerNorm + l2 aside, the
+    # similarity to all C*K prototypes, the own-class block, and one add
+    # of each contributing row into its sub-prototype
+    ops = 2 * n * c * k * d + 2 * n * k * d + n * d
+    nbytes_ = 4 * n * (d + k) + valid.numel() + 2 * protos.numel() * 4
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+    return {"err": err, "ms": ms, "plain": plain, "passes": passes,
+            "bound": max(ops_ms, bytes_ms), "ops": ops, "bytes": nbytes_,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "rows": n,
+            "by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def train_phase(cfg, dev):
@@ -348,14 +476,15 @@ def train_timings(cfg, dev, state, batch, tag):
     def fwd_bwd():
         model.train()
         model.zero_grad(set_to_none=True)
-        probs = model(x, return_feat=True)["probs"].permute(0, 2, 3, 1)
+        probs = model(x, return_feat=True, generator=state.generator)[
+            "probs"].permute(0, 2, 3, 1)
         loss = (focal_softmax_loss(probs, label, alpha_t, wss)
                 + lovasz_softmax_loss(probs, label, ignore=ignore,
                                       budget=cfg.train.lovasz_budget))
         loss.backward()
 
     with torch.no_grad():
-        out = model(x, return_feat=True)
+        out = model(x, return_feat=True, generator=state.generator)
     probs = out["probs"].permute(0, 2, 3, 1)
     emb = out["embedding"].permute(0, 2, 3, 1)
     pseudo = entropy_based_selection(probs, wss, eval_mask, label,
@@ -426,11 +555,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, three sources "
           "at once)")
     for lib in (k1.LIBRARY, k2.LIBRARY, k3.LIBRARY):
-        if os.path.exists(lib.log_path):
-            with open(lib.log_path) as f:
-                for line in f:
-                    if "registers" in line or "spill" in line:
-                        print(f"ptxas {lib.name}: {line.strip()}")
+        for func, regs, spill in ptxas_report(lib.log_path):
+            print(f"ptxas {lib.name} {func}: {regs}; {spill}")
+            check(lib is k1.LIBRARY
+                  or " 0 bytes spill stores, 0 bytes spill loads" in spill,
+                  f"ptxas: {lib.name} {func} spills: {spill}")
 
     cfg = preset("kitti")
     sensor, knn_cfg, n_classes = cfg.sensor, cfg.knn, cfg.data.n_classes
@@ -467,15 +596,21 @@ def main() -> int:
     pxi, pyi = proj["px"].contiguous(), proj["py"].contiguous()
     kw = dict(n_classes=n_classes, knn=knn_cfg.knn, search=knn_cfg.search,
               sigma=knn_cfg.sigma, cutoff=knn_cfg.cutoff)
-    got = k2.knn_vote(packed, prange, pxi, pyi, **kw)
-    want = k2.knn_vote_reference(packed, prange, pxi, pyi, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K2 knn_vote differs from its twin "
-          f"({int((got != want).sum())} of {got.numel()} points)")
-    k2_err = float((got - want).abs().max())
-    k2_ms = time_ms(lambda: k2.knn_vote(packed, prange, pxi, pyi, **kw))
-    k2_plain = time_ms(
-        lambda: k2.knn_vote_reference(packed, prange, pxi, pyi, **kw))
+    orders = {"random": (prange, pxi, pyi),
+              "pixel_sorted": pixel_sorted(prange, pxi, pyi, sensor.proj_w)}
+    k2_err, k2_ms_by, k2_plain_by = 0.0, {}, {}
+    for order, args in orders.items():
+        got = k2.knn_vote(packed, *args, **kw)
+        want = k2.knn_vote_reference(packed, *args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K2 knn_vote ({order} order) "
+              f"differs from its twin ({int((got != want).sum())} of "
+              f"{got.numel()} points)")
+        k2_err = max(k2_err, float((got - want).abs().max()))
+        k2_ms_by[order] = time_ms(lambda: k2.knn_vote(packed, *args, **kw))
+        k2_plain_by[order] = time_ms(
+            lambda: k2.knn_vote_reference(packed, *args, **kw))
+    k2_ms, k2_plain = k2_ms_by["random"], k2_plain_by["random"]
     k2_bytes = nbytes(packed, prange, pxi, pyi, got)
     # float32 operations per point: |dr| * g + 1 on every tap (3), the
     # selection's compares (knn * (S*S - 1)) and the cutoff test (2 a pick)
@@ -487,54 +622,12 @@ def main() -> int:
     k2_bound = max(k2_bytes_ms, k2_ops_ms)
     k2_by = "bytes" if k2_bytes_ms >= k2_ops_ms else "operations"
     print(f"K2 knn_vote B={BATCH} P={prange.shape[1]} C={n_classes} "
-          f"k={knn_cfg.knn} S={knn_cfg.search}: kernel == twin exactly")
-    del proj, packed, got, want
+          f"k={knn_cfg.knn} S={knn_cfg.search}: kernel == twin exactly in "
+          f"{' and '.join(orders)} order")
+    del proj, packed, got, want, orders
 
     # -- 3b. K3 ------------------------------------------------------------
-    feat3, valid3, protos3, gumbel3 = k3_case(dev)
-    kw3 = dict(momentum=0.999, ignore_cls=0)
-    got = k3.proto_tail(feat3, valid3, protos3, gumbel3, **kw3)
-    want = k3.proto_tail_reference(feat3, valid3, protos3, gumbel3, **kw3)
-    torch.cuda.synchronize()
-    k3_err = float((got - want).abs().max())
-    check(bool(torch.isfinite(got).all()), "K3 output holds NaN/inf")
-    check(k3_err <= 2e-5, f"K3 vs twin at momentum 0.999: {k3_err} > 2e-5")
-    l2_mem = protos3 / protos3.norm(dim=-1, keepdim=True)
-    empty_err = float((got[:2] - l2_mem[:2]).abs().max())
-    check(empty_err <= 1e-6, f"K3 empty/ignore classes moved: {empty_err}")
-    got0 = k3.proto_tail(feat3, valid3, protos3, gumbel3, momentum=0.0,
-                         ignore_cls=0)
-    want0 = k3.proto_tail_reference(feat3, valid3, protos3, gumbel3,
-                                    momentum=0.0, ignore_cls=0)
-    torch.cuda.synchronize()
-    row_err = (got0 - want0).abs().amax(dim=-1)                # (C, K)
-    rows_out = int((row_err > 1e-4).sum())
-    check(bool(torch.isfinite(got0).all()), "K3 output holds NaN/inf (m=0)")
-    check(rows_out <= 0.05 * row_err.numel(),
-          f"K3 vs twin at momentum 0: {rows_out} of {row_err.numel()} rows "
-          "off by > 1e-4")
-    n3 = int(valid3.sum())
-    c3, m3, d3 = feat3.shape
-    kk3 = protos3.shape[1]
-    print(f"K3 proto_tail C={c3} M={m3} K={kk3} D={d3}, {n3} valid rows: "
-          f"momentum 0.999 max abs err {k3_err:.3e}; momentum 0 max abs err "
-          f"{float(row_err.max()):.3e}, {rows_out} of {row_err.numel()} rows "
-          f"off by > 1e-4; empty classes err {empty_err:.1e}")
-    k3_ms = time_ms(lambda: k3.proto_tail(feat3, valid3, protos3, gumbel3,
-                                          **kw3))
-    k3_plain = time_ms(lambda: k3.proto_tail_reference(
-        feat3, valid3, protos3, gumbel3, **kw3))
-    # float32 work this run's valid rows need: LayerNorm + l2 aside, the
-    # similarity to all C*K prototypes, the own-class block, and one add
-    # of each contributing row into its sub-prototype
-    k3_ops = 2 * n3 * c3 * kk3 * d3 + 2 * n3 * kk3 * d3 + n3 * d3
-    k3_bytes = (4 * n3 * (d3 + kk3) + valid3.numel()
-                + 2 * protos3.numel() * 4)
-    k3_ops_ms = k3_ops / FP32_OPS_PER_S * 1e3
-    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
-    k3_bound = max(k3_ops_ms, k3_bytes_ms)
-    k3_by = "operations" if k3_ops_ms >= k3_bytes_ms else "bytes"
-    del feat3, valid3, protos3, gumbel3, got, want, got0, want0
+    k3_dense = k3_phase(k3, *k3_case(dev), ignore=0, name="dense", tag=tag)
 
     # -- 4. the serving path -------------------------------------------------
     state = calibrated_state(cfg, host[0][0][:2], host[0][1][:2])
@@ -637,7 +730,10 @@ def main() -> int:
         f"K1 proj_scatter_min: kernel {k1_ms:.4f} ms, twin {k1_plain:.4f} ms, "
         f"bound {k1_bound:.4f} ms ({k1_bytes / 1e6:.1f} MB at 3.35 TB/s); "
         "library: none (no single PyTorch call computes it)",
-        f"K2 knn_vote: kernel {k2_ms:.4f} ms, twin {k2_plain:.4f} ms, "
+        f"K2 knn_vote, random order: kernel {k2_ms:.4f} ms, twin "
+        f"{k2_plain:.4f} ms; pixel-sorted order: kernel "
+        f"{k2_ms_by['pixel_sorted']:.4f} ms, twin "
+        f"{k2_plain_by['pixel_sorted']:.4f} ms; "
         f"bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.1f} MB at 3.35 TB/s: "
         f"{k2_bytes_ms:.4f} ms; {k2_ops / 1e9:.3f} G float32 ops at 67 "
         f"TFLOP/s: {k2_ops_ms:.4f} ms); "
@@ -648,16 +744,25 @@ def main() -> int:
         f"end to end B={BATCH} (device-resident scans): {t_batch:.3f} "
         f"ms/batch, {BATCH * 1e3 / t_batch:.2f} scans/s, peak memory "
         f"{peak_gb:.2f} GB",
-        f"K3 proto_tail: kernel {k3_ms:.4f} ms, twin {k3_plain:.4f} ms, "
-        f"bound {k3_bound:.4f} ms ({k3_ops / 1e9:.3f} G float32 ops at 67 "
-        f"TFLOP/s: {k3_ops_ms:.4f} ms; {k3_bytes / 1e6:.1f} MB at 3.35 TB/s: "
-        f"{k3_bytes_ms:.4f} ms); library: none (no single PyTorch call "
-        "computes it)",
+        f"K3 proto_tail, dense ({k3_dense['rows']} valid rows): kernel "
+        f"{k3_dense['ms']:.4f} ms, twin {k3_dense['plain']:.4f} ms, bound "
+        f"{k3_dense['bound']:.4f} ms ({k3_dense['ops'] / 1e9:.3f} G float32 "
+        f"ops at 67 TFLOP/s: {k3_dense['ops_ms']:.4f} ms; "
+        f"{k3_dense['bytes'] / 1e6:.1f} MB at 3.35 TB/s: "
+        f"{k3_dense['bytes_ms']:.4f} ms); library: none (no single PyTorch "
+        "call computes it)",
     ):
         print(f"timing {tag} {line}")
 
     # -- 6-8. the training path ----------------------------------------------
     state, tbatch, thost, train_launches = train_phase(cfg, dev)
+    k3_train = k3_phase(k3, *k3_training_case(cfg, dev, state, tbatch),
+                        ignore=cfg.train.ignore_cls, name="training batch",
+                        tag=tag)
+    print(f"timing {tag} K3 proto_tail, training batch "
+          f"({k3_train['rows']} valid rows): kernel {k3_train['ms']:.4f} ms, "
+          f"twin {k3_train['plain']:.4f} ms, bound {k3_train['bound']:.4f} ms"
+          f" ({k3_train['by']})")
     train_cpu_vs_card(cfg, dev, thost)
     train_timings(cfg, dev, state, tbatch, tag)
 
@@ -673,13 +778,26 @@ def main() -> int:
          "replaces": "coarse3d_tpu/ops/pallas/knn_vote.py:34",
          "launches": launches["knn_vote"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None,
+         "ms_by_order": k2_ms_by, "plain_ms_by_order": k2_plain_by},
         {"name": "proto_tail", "route": "cuda",
          "source": "coarse3d_tpu_torch/csrc/proto_update.cu",
          "replaces": "coarse3d_tpu/ops/pallas/proto_update.py:40",
-         "launches": train_launches["proto_tail"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "launches": train_launches["proto_tail"],
+         "max_abs_err": max(k3_dense["err"], k3_train["err"]),
+         "ms": k3_dense["ms"], "plain_ms": k3_dense["plain"],
+         "bound_ms": k3_dense["bound"], "bound_by": k3_dense["by"],
+         "library_ms": None,
+         "ms_by_size": {"dense": k3_dense["ms"],
+                        "training": k3_train["ms"]},
+         "plain_ms_by_size": {"dense": k3_dense["plain"],
+                              "training": k3_train["plain"]},
+         "bound_ms_by_size": {"dense": k3_dense["bound"],
+                              "training": k3_train["bound"]},
+         "valid_rows_by_size": {"dense": k3_dense["rows"],
+                                "training": k3_train["rows"]},
+         "pass_ms_by_size": {"dense": k3_dense["passes"],
+                             "training": k3_train["passes"]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

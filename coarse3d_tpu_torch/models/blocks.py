@@ -13,7 +13,9 @@ PyTorch momentum 0.1, eps 1e-5, and in training the running variance
 takes the biased batch variance, as Flax's does (:class:`BatchNorm2d`);
 "SAME" 3x3 with dilation 2 is padding 2; the 2x2 kernel with dilation 2
 takes an explicit pad of 1 (an effective 3x3 that keeps the size); dropout
-drops whole channels (Dropout2d, the JAX ``broadcast_dims=(1, 2)``).
+drops whole channels (:class:`Dropout2d`, the JAX
+``broadcast_dims=(1, 2)``), its mask drawn from the generator the caller
+passes.
 """
 
 from __future__ import annotations
@@ -58,6 +60,40 @@ class BatchNorm2d(nn.BatchNorm2d):
             kept = (1.0 - self.momentum) * self.running_var
             self.running_var.copy_((folded - kept) * ((n - 1) / n) + kept)
         return y
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout whose mask comes from an explicit ``torch.Generator``.
+
+    In training, each (sample, channel) plane is kept with probability
+    1 - p and scaled by 1/(1 - p), as ``nn.Dropout2d`` does (and the JAX
+    ``nn.Dropout(broadcast_dims=(1, 2))``); in eval it is the identity.
+    ``nn.Dropout2d`` draws from torch's global generator, so a run would
+    not repeat from its seed: here the caller passes the generator (the
+    training step passes ``state.generator``), and a training forward with
+    p > 0 and no generator raises.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate {p} outside [0, 1)")
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout2d in training needs an explicit "
+                             "generator (the step passes state.generator)")
+        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                       device=generator.device).to(x.device)
+        scale = (u >= self.p).to(torch.float32) / (1.0 - self.p)
+        return x * scale.to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 def _bn(features: int) -> BatchNorm2d:
@@ -121,9 +157,10 @@ class ResBlock(nn.Module):
         self.bn3 = _bn(out_filters)
         self.conv5 = nn.Conv2d(3 * out_filters, out_filters, 1)
         self.bn4 = _bn(out_filters)
-        self.dropout = nn.Dropout2d(dropout_rate)
+        self.dropout = Dropout2d(dropout_rate)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None):
         shortcut = F.leaky_relu(self.conv1(x), LEAKY_SLOPE)
         res1 = conv_act_bn(x, self.conv2, self.bn1)
         res2 = conv_act_bn(res1, self.conv3, self.bn2)
@@ -131,7 +168,7 @@ class ResBlock(nn.Module):
         res = conv_act_bn(torch.cat([res1, res2, res3], dim=1), self.conv5,
                           self.bn4)
         res = shortcut + res
-        out = self.dropout(res) if self.drop_out else res
+        out = self.dropout(res, generator) if self.drop_out else res
         if self.pooling:
             pooled = F.avg_pool2d(out, 3, stride=2, padding=1,
                                   count_include_pad=True)
@@ -159,23 +196,24 @@ class UpBlock(nn.Module):
         self.bn3 = _bn(out_filters)
         self.conv4 = nn.Conv2d(3 * out_filters, out_filters, 1)
         self.bn4 = _bn(out_filters)
-        self.dropout1 = nn.Dropout2d(dropout_rate)
-        self.dropout2 = nn.Dropout2d(dropout_rate)
-        self.dropout3 = nn.Dropout2d(dropout_rate)
+        self.dropout1 = Dropout2d(dropout_rate)
+        self.dropout2 = Dropout2d(dropout_rate)
+        self.dropout3 = Dropout2d(dropout_rate)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         up = pixel_shuffle(x, 2)
         if self.drop_out:
-            up = self.dropout1(up)
+            up = self.dropout1(up, generator)
         up = torch.cat([up, skip], dim=1)
         if self.drop_out:
-            up = self.dropout2(up)
+            up = self.dropout2(up, generator)
         e1 = conv_act_bn(up, self.conv1, self.bn1)
         e2 = conv_act_bn(e1, self.conv2, self.bn2)
         e3 = conv_act_bn(e2, self.conv3, self.bn3)
         out = conv_act_bn(torch.cat([e1, e2, e3], dim=1), self.conv4, self.bn4)
         if self.drop_out:
-            out = self.dropout3(out)
+            out = self.dropout3(out, generator)
         return out
 
 

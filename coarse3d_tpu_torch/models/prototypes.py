@@ -56,6 +56,33 @@ def prototype_similarity(
     return feat, sim, nearest
 
 
+def gather_class_rows(
+    prototypes: torch.Tensor,
+    embedding: torch.Tensor,
+    label: torch.Tensor,
+    label_mask: torch.Tensor,
+    cfg: ContrastConfig,
+    ignore_cls: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense inputs of the prototype tail: (feat_rows (C, M, D), valid
+    (C, M), l2-normalized memory (C, K, D)), each class's budgeted rows
+    gathered with one stable sort. Arguments as :func:`update_prototypes`."""
+    c = prototypes.shape[0]
+    b, h, w, d = embedding.shape
+    with torch.no_grad():
+        protos = l2_normalize(prototypes.float())
+        flat_label = label.reshape(-1)
+        flat_valid = label_mask.reshape(-1) & (flat_label != ignore_cls)
+        idx, valid = gather_class_indices(
+            flat_label, flat_valid, c, cfg.max_pixels_per_class)  # (C, M)
+        # gather first: only the (C, M) budgeted rows are ever consumed. A
+        # permuted view of the model's NCHW output stays a view under this
+        # reshape, so only the gathered rows are copied
+        flat = embedding.detach().reshape(b, h * w, d)
+        feat_rows = flat[idx // (h * w), idx % (h * w)].float()  # (C, M, D)
+        return feat_rows, valid, protos.contiguous()
+
+
 def update_prototypes(
     prototypes: torch.Tensor,
     embedding: torch.Tensor,
@@ -77,20 +104,10 @@ def update_prototypes(
 
     Returns the new (C, K, D) memory.
     """
-    c = prototypes.shape[0]
-    b, h, w, d = embedding.shape
+    feat_rows, valid, protos = gather_class_rows(
+        prototypes, embedding, label, label_mask, cfg, ignore_cls)
     with torch.no_grad():
-        protos = l2_normalize(prototypes.float())
-        flat_label = label.reshape(-1)
-        flat_valid = label_mask.reshape(-1) & (flat_label != ignore_cls)
-        idx, valid = gather_class_indices(
-            flat_label, flat_valid, c, cfg.max_pixels_per_class)  # (C, M)
-        # gather first: only the (C, M) budgeted rows are ever consumed. A
-        # permuted view of the model's NCHW output stays a view under this
-        # reshape, so only the gathered rows are copied
-        flat = embedding.detach().reshape(b, h * w, d)
-        feat_rows = flat[idx // (h * w), idx % (h * w)].float()  # (C, M, D)
-        return proto_tail(feat_rows, valid, protos.contiguous(),
+        return proto_tail(feat_rows, valid, protos,
                           gumbel.float().contiguous(),
                           momentum=cfg.proto_momentum, ignore_cls=ignore_cls)
 

@@ -58,9 +58,12 @@ class SalsaNext(nn.Module):
         self.cls_head = nn.Conv2d(bc, n_classes, 1)
         self.projector = ProjectionHead(22 * bc, proj_dim)
 
-    def forward(self, x: torch.Tensor, return_feat: bool = False
+    def forward(self, x: torch.Tensor, return_feat: bool = False,
+                generator: torch.Generator | None = None
                 ) -> dict[str, torch.Tensor]:
-        """x: (B, in_channels, H, W) normalized range-image features.
+        """x: (B, in_channels, H, W) normalized range-image features;
+        ``generator`` draws the dropout masks (needed in training when the
+        dropout rate is above 0).
 
         Returns {"logits", "probs"} (B, n_classes, H, W) float32, plus
         "embedding" (B, proj_dim, H, W) when ``return_feat``.
@@ -76,15 +79,16 @@ class SalsaNext(nn.Module):
         with torch.autocast(dev, dtype=self.compute_dtype,
                             enabled=self.compute_dtype != torch.float32):
             ctx = self.downCntx3(self.downCntx2(self.downCntx(x)))
-            d0c, d0b = self.resBlock1(ctx)
-            d1c, d1b = self.resBlock2(d0c)
-            d2c, d2b = self.resBlock3(d1c)
-            d3c, d3b = self.resBlock4(d2c)
-            d5c = self.resBlock5(d3c)
-            u4 = self.upBlock1(d5c, d3b)
-            u3 = self.upBlock2(u4, d2b)
-            u2 = self.upBlock3(u3, d1b)
-            u1 = self.upBlock4(u2, d0b)
+            g = generator
+            d0c, d0b = self.resBlock1(ctx, g)
+            d1c, d1b = self.resBlock2(d0c, g)
+            d2c, d2b = self.resBlock3(d1c, g)
+            d3c, d3b = self.resBlock4(d2c, g)
+            d5c = self.resBlock5(d3c, g)
+            u4 = self.upBlock1(d5c, d3b, g)
+            u3 = self.upBlock2(u4, d2b, g)
+            u2 = self.upBlock3(u3, d1b, g)
+            u1 = self.upBlock4(u2, d0b, g)
 
         with torch.autocast(dev, enabled=False):
             logits = self.cls_head(u1.float())

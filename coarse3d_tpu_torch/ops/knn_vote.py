@@ -6,15 +6,22 @@ the label-packed range image, centre <- own range, dist = |Δr|·(1-gauss) + 1,
 k rounds of min-extraction (labels in the 5 low mantissa bits), dist-1 >
 cutoff -> invalid class C, vote over 1..C-1, argmax + 1.
 
-Unlike the TPU kernel, K2 does not take pre-gathered (B, P, S²) windows:
-each thread fetches its own window straight from the packed (B, H, W) image
-(8.4 MB at KITTI size, resident in the H100's 50 MB L2), which saves the
-240 MB window tensor the TPU path writes and reads. On a CUDA tensor
-:func:`knn_vote` launches the kernel; on a CPU tensor it runs
-:func:`knn_vote_reference`, the whole window chain in plain PyTorch (pad,
-S² shifted views, flat gather, ``torch.topk``, vote). The kernel is built
-with ``--fmad=false`` so |Δr|·g + 1 rounds as the twin's separate ops do,
-and the card holds the two equal exactly.
+Unlike the TPU kernel, K2 does not take pre-gathered (B, P, S²) windows
+(240 MB at KITTI size). It buckets the points by image tile (8 rows x 128
+columns): a tile histogram, a scan into offsets and a chunk table (chunks
+of at most 1024 points, never across a tile), a scatter of 16-byte
+records {point, range, y, x} into tile order, then one block per chunk
+that reads its tile and halo from the packed (B, H, W) image once,
+coalesced, into shared memory, and votes each record from there. So the
+window reads are shared and coalesced in any point order. Four launches
+behind one C entry point; integer atomics only (the order within a tile
+may vary; no label depends on it). The wrapper allocates the scratch.
+
+On a CUDA tensor :func:`knn_vote` launches the kernel; on a CPU tensor it
+runs :func:`knn_vote_reference`, the whole window chain in plain PyTorch
+(pad, S² shifted views, flat gather, ``torch.topk``, vote). The kernel is
+built with ``--fmad=false`` so |Δr|·g + 1 rounds as the twin's separate
+ops do, and the card holds the two equal exactly.
 
 What bounds the kernel on an H100 is bytes: at KITTI size 28.8 MB of
 per-point inputs (range, px, py), 8.4 MB of image and 9.6 MB of labels out.
@@ -37,6 +44,10 @@ from coarse3d_tpu_torch.ops.knn import (
 )
 
 SEARCH_SIZES = (3, 5, 7)  # window sizes the kernel is instantiated for
+TILE_H, TILE_W = 8, 128   # image tile of one bucket (csrc: kTileH, kTileW)
+CHUNK = 1024              # most points of one vote block (csrc: kChunk)
+MAX_TILES = 232448 // 4   # tile histogram in one block's shared memory
+INT32_MAX = 2**31 - 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -44,10 +55,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     i32 = ctypes.c_int32
     lib.c3d_knn_vote.argtypes = [
         p, p, p, p, p, p,                    # packed, range, px, py, gauss, out
+        p,                                   # scratch
         ctypes.c_int64, ctypes.c_int64,      # b, p
         i32, i32, i32, i32, i32,             # h, w, search, n_classes, knn
         ctypes.c_float, p]                   # cutoff, stream
     lib.c3d_knn_vote.restype = ctypes.c_int
+    lib.c3d_knn_vote_scratch.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                         i32, i32]
+    lib.c3d_knn_vote_scratch.restype = ctypes.c_int64
 
 
 # --fmad=false: no multiply-add contraction, so the kernel's distances round
@@ -111,13 +126,25 @@ def knn_vote(
         raise ValueError("knn_vote kernel needs contiguous inputs")
     b, h, w = packed.shape
     p = point_range.shape[1]
+    n_tiles, _ = tile_layout(b, p, h, w)
+    if b * p > INT32_MAX or b * h * w > INT32_MAX:
+        raise ValueError(f"K2 indexes in int32: B*P={b * p} and B*H*W="
+                         f"{b * h * w} must be <= {INT32_MAX}")
+    if n_tiles > MAX_TILES or max(h, w, b) > 65535:
+        raise ValueError(f"K2 takes at most {MAX_TILES} image tiles and H, "
+                         f"W, B <= 65535; got B={b}, H={h}, W={w}")
     lib = LIBRARY.load()
     gauss = np.ascontiguousarray(_inv_gaussian_kernel(search, sigma))
-    out = torch.empty((b, p), dtype=torch.int32, device=packed.device)
-    with torch.cuda.device(packed.device):
+    dev = packed.device
+    out = torch.empty((b, p), dtype=torch.int32, device=dev)
+    # one allocation; the C entry point carves it and zeroes the counts
+    scratch = torch.empty(lib.c3d_knn_vote_scratch(b, p, h, w),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.c3d_knn_vote(
             packed.data_ptr(), point_range.data_ptr(), px.data_ptr(),
-            py.data_ptr(), gauss.ctypes.data, out.data_ptr(), b, p, h, w,
+            py.data_ptr(), gauss.ctypes.data, out.data_ptr(),
+            scratch.data_ptr(), b, p, h, w,
             search, n_classes, knn, cutoff, stream_of(packed))
     launch_check(err, "knn_vote")
     knn_vote.launches += 1
@@ -125,6 +152,14 @@ def knn_vote(
 
 
 knn_vote.launches = 0  # kernel launches; chip_smoke.py reads and resets it
+
+
+def tile_layout(b: int, p: int, h: int, w: int) -> tuple[int, int]:
+    """(number of image tiles, most vote chunks) of K2 at this shape: each
+    tile holds ceil(count / CHUNK) chunks, so at most one more than its
+    share of B*P / CHUNK."""
+    n_tiles = b * -(-h // TILE_H) * -(-w // TILE_W)
+    return n_tiles, n_tiles + -(-(b * p) // CHUNK)
 
 
 def knn_vote_reference(

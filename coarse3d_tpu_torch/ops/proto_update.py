@@ -14,12 +14,24 @@ On a CUDA tensor :func:`proto_tail` launches K3; on a CPU tensor it runs
 PyTorch. The kernel sums in another order than the twin, so the card holds
 the two by tolerance (``chip_smoke.py``), not exactly.
 
+K3 is three launches behind one C entry point (``csrc/proto_update.cu``):
+- a one-block pre-pass that lists the (class, 64-row tile) pairs holding a
+  valid row;
+- the row pass, persistent blocks walking (live pair, chunk of whole
+  classes of the memory) units: a register-tiled float32 product against
+  the chunk staged in depth slices of 32 (cp.async, double-buffered), the
+  class maxima folded per row;
+- the class pass, one cluster of 8 CTAs per class, each holding a slice
+  of Q up to the last valid slot: the agreement from the class maxima,
+  the max, total and Sinkhorn column sums combined through distributed
+  shared memory in rank order, and the contraction by assignment groups
+  in registers.
+
 What bounds K3 on an H100 is float32 operations (TF32 stays off): at KITTI
 size (C=20, M=2048, K=20, D=256, every row valid) the similarity is
 2·C·M·C·K·D = 8.39 G, the own-class block and the contraction 0.42 G each:
 9.23 GFLOP, 0.138 ms at 67 TFLOP/s, against 46.6 MB of bytes (0.014 ms at
-3.35 TB/s). The kernel skips tiles of rows that hold no valid row, so its
-work follows the valid counts.
+3.35 TB/s). The work follows the valid rows, not the M slots.
 """
 
 from __future__ import annotations
@@ -34,11 +46,13 @@ from coarse3d_tpu_torch.ops.sinkhorn import masked_sinkhorn
 SINKHORN_ITERS = 3
 SINKHORN_EPS = 0.05
 MAX_CLASSES = 32        # one lane per class in the row pass
-MAX_SUB_PROTOS = 32     # one warp per sub-prototype column in the class pass
-MAX_DIM = 1024          # one thread per feature in the class pass
+MAX_SUB_PROTOS = 32     # one lane per sub-prototype bucket in the class pass
+DIM_MULTIPLE = 32       # D is staged in depth slices of 32 (csrc: kSlice)
 SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
-ROWS_PER_TILE = 16      # rows of one row-pass block (csrc: kRows)
-PROTOS_PER_CHUNK = 32   # prototypes staged per chunk (csrc: kChunk)
+ROWS_PER_TILE = 64      # rows of one row-pass block (csrc: kRows)
+PROTOS_PER_CHUNK = 128  # prototype columns of one chunk (csrc: kProtos)
+SLICE_LD = 36           # padded depth slice row, floats (csrc: kSliceLd)
+CLUSTER = 8             # CTAs of one class in the class pass (csrc: kCluster)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -46,12 +60,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     i32 = ctypes.c_int32
     f32 = ctypes.c_float
     lib.c3d_proto_tail.argtypes = [
+        i32,                         # pass: -1 both, 0 row pass, 1 class pass
         p, p, p, p,                  # feat, valid, protos, gumbel
-        p, p, p, p,                  # featn, simc, agree (scratch), out
+        p, p,                        # scratch, out
         i32, i32, i32, i32,          # c, m, k, d
         f32, f32, f32, i32, i32,     # momentum, 1 - momentum, eps, ignore, iters
         p]                           # stream
     lib.c3d_proto_tail.restype = ctypes.c_int
+    lib.c3d_proto_tail_scratch.argtypes = [i32, i32, i32, i32]
+    lib.c3d_proto_tail_scratch.restype = ctypes.c_int64
 
 
 # IEEE division and expf throughout: never -use_fast_math
@@ -59,12 +76,15 @@ LIBRARY = KernelLibrary("proto_update", _bind)
 
 
 def smem_bytes(c: int, m: int, k: int, d: int) -> tuple[int, int]:
-    """Dynamic shared memory of the row pass and the class pass."""
-    row = 4 * ((ROWS_PER_TILE + PROTOS_PER_CHUNK) * (d + 1)
-               + ROWS_PER_TILE * c * k)
-    slices = max(1, MAX_DIM // d)
-    cls = 4 * max(m * k, slices * k * d) + 4 * m + 2 * m + 4 * 96
-    return row, cls
+    """Dynamic shared memory of the row pass and the class pass (the sums
+    in ``csrc/proto_update.cu:row_smem_bytes`` and ``class_smem_bytes``)."""
+    del c
+    row = 4 * (ROWS_PER_TILE * (d + 4) + 2 * PROTOS_PER_CHUNK * SLICE_LD)
+    r = -(-m // CLUSTER)                 # most rows one CTA holds
+    floats = (k * d + r * (k + 1) + -(-k // CLUSTER) * d + (2 + 2 * k) + k
+              + 66)
+    ints = k + (k + 1) + 2 * r
+    return row, 4 * floats + 4 * ints + 2 * r
 
 
 def _check(feat_rows, valid, protos_n, gumbel) -> None:
@@ -113,36 +133,73 @@ def proto_tail(
                                     momentum=momentum, ignore_cls=ignore_cls)
     if feat_rows.device.type != "cuda":
         raise ValueError(f"unsupported device {feat_rows.device}")
-    if not all(t.is_contiguous() for t in (feat_rows, valid, protos_n, gumbel)):
-        raise ValueError("proto_tail kernel needs contiguous inputs")
-    c, m, d = feat_rows.shape
-    k = protos_n.shape[1]
-    if c > MAX_CLASSES or k > MAX_SUB_PROTOS or d > MAX_DIM:
-        raise ValueError(f"K3 takes C <= {MAX_CLASSES}, K <= {MAX_SUB_PROTOS},"
-                         f" D <= {MAX_DIM}; got C={c}, K={k}, D={d}")
-    need = max(smem_bytes(c, m, k, d))
-    if need > SMEM_LIMIT:
-        raise ValueError(f"K3 needs {need} bytes of shared memory per block "
-                         f"at C={c}, M={m}, K={k}, D={d} (> {SMEM_LIMIT})")
-    lib = LIBRARY.load()
-    dev = feat_rows.device
-    featn = torch.empty((c, m, d), dtype=torch.float32, device=dev)
-    simc = torch.empty((c, m, k), dtype=torch.float32, device=dev)
-    agree = torch.empty((c, m), dtype=torch.uint8, device=dev)
-    out = torch.empty((c, k, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.c3d_proto_tail(
-            feat_rows.data_ptr(), valid.data_ptr(), protos_n.data_ptr(),
-            gumbel.data_ptr(), featn.data_ptr(), simc.data_ptr(),
-            agree.data_ptr(), out.data_ptr(), c, m, k, d, momentum,
-            1.0 - momentum, SINKHORN_EPS, ignore_cls, SINKHORN_ITERS,
-            stream_of(feat_rows))
-    launch_check(err, "proto_tail")
+    buffers = _kernel_buffers(feat_rows, valid, protos_n, gumbel)
+    _launch(-1, feat_rows, valid, protos_n, gumbel, buffers, momentum,
+            ignore_cls)
     proto_tail.launches += 1
-    return out
+    return buffers[-1]
 
 
 proto_tail.launches = 0  # kernel launches; chip_smoke.py reads and resets it
+
+
+def _kernel_buffers(feat_rows, valid, protos_n, gumbel):
+    """Check what the kernel takes; return its scratch (one allocation,
+    carved by the C entry point: featn, simc, the class maxima and the list
+    of live tiles) and its output: the kernel allocates nothing."""
+    if not all(t.is_contiguous() for t in (feat_rows, valid, protos_n,
+                                           gumbel)):
+        raise ValueError("proto_tail kernel needs contiguous inputs")
+    c, m, d = feat_rows.shape
+    k = protos_n.shape[1]
+    if c > MAX_CLASSES or k > MAX_SUB_PROTOS or d % DIM_MULTIPLE:
+        raise ValueError(f"K3 takes C <= {MAX_CLASSES}, K <= {MAX_SUB_PROTOS}"
+                         f" and D a multiple of {DIM_MULTIPLE}; got C={c}, "
+                         f"K={k}, D={d}")
+    need = max(smem_bytes(c, m, k, d))
+    # the pre-pass holds one int flag per (class, row tile) pair
+    if need > SMEM_LIMIT or 4 * c * -(-m // ROWS_PER_TILE) > SMEM_LIMIT - 1024:
+        raise ValueError(f"K3 needs {need} bytes of shared memory per block "
+                         f"at C={c}, M={m}, K={k}, D={d} (> {SMEM_LIMIT})")
+    dev = feat_rows.device
+    words = LIBRARY.load().c3d_proto_tail_scratch(c, m, k, d)
+    return (torch.empty(words, dtype=torch.float32, device=dev),
+            torch.empty((c, k, d), dtype=torch.float32, device=dev))
+
+
+def _launch(which, feat_rows, valid, protos_n, gumbel, buffers, momentum,
+            ignore_cls) -> None:
+    c, m, d = feat_rows.shape
+    k = protos_n.shape[1]
+    scratch, out = buffers
+    with torch.cuda.device(feat_rows.device):
+        err = LIBRARY.load().c3d_proto_tail(
+            which, feat_rows.data_ptr(), valid.data_ptr(),
+            protos_n.data_ptr(), gumbel.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), c, m, k, d, momentum, 1.0 - momentum,
+            SINKHORN_EPS, ignore_cls, SINKHORN_ITERS, stream_of(feat_rows))
+    launch_check(err, "proto_tail")
+
+
+def pass_timer(feat_rows, valid, protos_n, gumbel, *, momentum: float,
+               ignore_cls: int = 0):
+    """For timing each of K3's two passes alone on CUDA tensors: returns
+    ``run(which)`` that launches the row pass (0) or the class pass (1) on
+    scratch allocated once (the class pass reads what the row pass left).
+    These launches are measurements, not the path's: they are not counted
+    in ``proto_tail.launches``."""
+    _check(feat_rows, valid, protos_n, gumbel)
+    if feat_rows.device.type != "cuda":
+        raise ValueError("pass_timer times the kernel: CUDA tensors only")
+    buffers = _kernel_buffers(feat_rows, valid, protos_n, gumbel)
+    _launch(0, feat_rows, valid, protos_n, gumbel, buffers, momentum,
+            ignore_cls)
+
+    def run(which: int) -> None:
+        _launch(which, feat_rows, valid, protos_n, gumbel, buffers,
+                momentum, ignore_cls)
+
+    return run
 
 
 def _l2(x: torch.Tensor) -> torch.Tensor:

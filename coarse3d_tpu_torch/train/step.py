@@ -12,7 +12,8 @@ Differences of form, not of result:
   replaces its prototype memory; it returns the same state object;
 - its noise is an argument: ``noise`` = {"select": (B*H*W,) Gumbel,
   "anchor": (B, C, A) uniforms, "proto": (C, M, K) Gumbel}; when None it is
-  drawn from the state's device generator (:func:`draw_noise`);
+  drawn from the state's device generator (:func:`draw_noise`), and so are
+  the dropout masks, always;
 - the model returns NCHW maps; the losses take (B, H, W, C) and
   (B, H, W, D) permuted views of them, so the (B, D, H, W) embedding is
   never copied: the anchor and class gathers read only the rows they need.
@@ -122,7 +123,7 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         out = model(features.permute(0, 3, 1, 2).contiguous(),
-                    return_feat=with_contrast)
+                    return_feat=with_contrast, generator=state.generator)
         probs = out["probs"].permute(0, 2, 3, 1)             # (B, H, W, C)
 
         losses: dict[str, torch.Tensor] = {}

@@ -10,7 +10,11 @@ noise handed to the port. Tolerances:
   mode: atol 1e-5, at momentum 0.9 and 0.0;
 - empty-class and ignore-class rows equal l2(memory) within 1e-6;
 - ``prototype_diagnostics`` within 1e-6; ``prototype_similarity`` within
-  1e-6 (1e-5 after its class LayerNorm).
+  1e-6 (1e-5 after its class LayerNorm);
+- ``_k3_schedule``, a plain mirror of K3's schedule on the card (row tiles,
+  class-aligned chunks, cluster slices, loops bounded by the last valid
+  slot, the contraction by assignment groups), vs ``proto_tail_reference``:
+  atol 1e-6 (the same arithmetic, sums cut in other places).
 """
 
 import jax
@@ -165,8 +169,165 @@ def test_proto_tail_checks_its_inputs(data):
     with pytest.raises(TypeError, match="float32"):
         k3.proto_tail(_t(rows).double(), _t(vmask), _t(protos_n), _t(gumbel),
                       momentum=0.9)
-    # shared memory of both passes at KITTI size fits one H100 block
-    assert max(k3.smem_bytes(20, 2048, 20, 256)) <= k3.SMEM_LIMIT
+
+
+
+@pytest.mark.parametrize("name", ["kitti", "poss", "nuscenes"])
+def test_proto_tail_smem_fits_every_preset(name):
+    from coarse3d_tpu_torch.configs import preset
+
+    cfg = preset(name)
+    c, k = cfg.data.n_classes, cfg.contrast.sub_proto_size
+    m, d = cfg.contrast.max_pixels_per_class, cfg.contrast.proj_dim
+    row, cls = k3.smem_bytes(c, m, k, d)
+    print(f"{name}: C={c} M={m} K={k} D={d}: row pass {row} B, class pass "
+          f"{cls} B of {k3.SMEM_LIMIT}")
+    assert max(row, cls) <= k3.SMEM_LIMIT
+    # two row-pass blocks share one SM's 228 KB (1 KB reserved per block)
+    assert 2 * (row + 1024) <= 233472
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((2, 64, 4, 1024), "shared memory"),   # the row pass's tile of rows
+    ((2, 64, 4, 48), "multiple of 32"),
+    ((33, 64, 4, 32), "C <= 32"),
+])
+def test_proto_tail_kernel_refuses_what_it_cannot_take(shape, match):
+    c, m, k, d = shape
+    args = (torch.zeros(c, m, d), torch.zeros(c, m, dtype=torch.bool),
+            torch.zeros(c, k, d), torch.zeros(c, m, k))
+    with pytest.raises(ValueError, match=match):
+        k3._kernel_buffers(*args)
+
+
+def _l2n(x):
+    return x / torch.clamp_min(torch.sqrt((x * x).sum(-1, keepdim=True)), 1e-12)
+
+
+def _ln(x, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + eps)
+
+
+def _k3_schedule(feat_rows, valid, protos_n, gumbel, momentum, ignore_cls=0):
+    """K3's schedule on the card, in plain PyTorch (csrc/proto_update.cu).
+
+    Row pass: tiles of ROWS_PER_TILE rows of one class, skipped when they
+    hold no valid row, each against one chunk of whole classes of the
+    memory (at most PROTOS_PER_CHUNK columns, chunks as even as they go);
+    the chunk's class maxima folded into the rows' C-vector and the
+    own-class block kept. Class pass: the rows up to the last valid slot
+    cut into CLUSTER slices; the agreement from the class maxima; max,
+    total and each round's column sums combined slice by slice in rank
+    order; the contraction summed per assignment group within each slice,
+    then the slices' partial sums in rank order.
+    """
+    c, m, d = feat_rows.shape
+    k = protos_n.shape[1]
+    eps, iters, cl = k3.SINKHORN_EPS, k3.SINKHORN_ITERS, k3.CLUSTER
+    featn = _l2n(_ln(feat_rows))
+    near = torch.full((c, m, c), float("-inf"))
+    simc = torch.zeros(c, m, k)
+    agree = torch.zeros(c, m, dtype=torch.bool)
+    most = max(1, min(c, k3.PROTOS_PER_CHUNK // k))
+    per_chunk = -(-c // -(-c // most))     # chunks as even as they go
+    for cls in range(c):
+        for r0 in range(0, m, k3.ROWS_PER_TILE):
+            rows = slice(r0, min(r0 + k3.ROWS_PER_TILE, m))
+            if not bool(valid[cls, rows].any()):
+                continue
+            for q0 in range(0, c, per_chunk):
+                nq = min(per_chunk, c - q0)
+                sims = featn[cls, rows] @ protos_n[q0:q0 + nq].reshape(
+                    nq * k, d).T
+                near[cls, rows, q0:q0 + nq] = sims.reshape(-1, nq, k).amax(-1)
+                if q0 <= cls < q0 + nq:
+                    simc[cls, rows] = sims[:, (cls - q0) * k:(cls - q0 + 1) * k]
+            pred = torch.argmax(_ln(near[cls, rows]), dim=-1)
+            agree[cls, rows] = valid[cls, rows] & (pred == cls)
+
+    out = torch.empty(c, k, d)
+    for cls in range(c):
+        v = valid[cls]
+        if not bool(v.any()) or cls == ignore_cls:
+            out[cls] = _l2n(protos_n[cls])
+            continue
+        nv = v.sum().float()
+        n_act = int(torch.nonzero(v).max()) + 1
+        per = -(-n_act // cl)
+        cuts = [(min(r * per, n_act), min(r * per + per, n_act))
+                for r in range(cl)]
+        logit = torch.where(v[:, None], simc[cls] / eps, float("-inf"))
+        lmax = max(float(logit[a:b].max()) for a, b in cuts if b > a)
+        q = torch.where(v[:, None], torch.exp(logit - lmax), 0.0)
+        total = torch.zeros(())
+        for a, b in cuts:
+            total = total + q[a:b].sum()
+        q = q / torch.where(total > 0, total, 1.0)
+        for _ in range(iters):
+            col = torch.zeros(k)
+            for a, b in cuts:
+                col = col + q[a:b].sum(0)
+            q = (q / torch.where(col > 0, col, 1.0)) / k
+            rs = q.sum(-1, keepdim=True)
+            q = torch.where(v[:, None], (q / torch.where(rs > 0, rs, 1.0)) / nv,
+                            0.0)
+        hard = torch.argmax(q * nv + gumbel[cls], dim=-1)
+        w = v & agree[cls]
+        f = torch.zeros(k, d)
+        count = torch.zeros(k, dtype=torch.int64)
+        for a, b in cuts:
+            for kk in range(k):
+                group = torch.nonzero(w[a:b] & (hard[a:b] == kk))[:, 0] + a
+                f[kk] = f[kk] + featn[cls, group].sum(0)
+                count[kk] += len(group)
+        f = _l2n(f)
+        new = torch.where((count > 0)[:, None],
+                          momentum * protos_n[cls] + (1 - momentum) * f,
+                          protos_n[cls])
+        out[cls] = _l2n(new)
+    return out
+
+
+def _schedule_case(kind, seed=0):
+    """(feat, valid, protos_n, gumbel): the tiny shape, or C=20, K=20,
+    D=256 with the class counts 0 (ignore class and class 1), 1, M and
+    random elsewhere as prefixes, or scattered (non-prefix) masks."""
+    rng = np.random.default_rng(seed)
+    c, m, k, d = (C, M, K, D) if kind == "tiny" else (20, 512, 20, 256)
+    feat = rng.normal(size=(c, m, d)).astype(np.float32)
+    protos = rng.normal(size=(c, k, d)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=-1, keepdims=True)
+    u = np.maximum(rng.random((c, m, k)), 1e-30)
+    gumbel = (-np.log(-np.log(u))).astype(np.float32)
+    if kind == "scattered":
+        valid = rng.random((c, m)) < rng.uniform(0.02, 0.9, (c, 1))
+        valid[0] = valid[1] = False
+        valid[3] = False
+        valid[3, m - 5] = True          # one valid row, at the end
+    else:
+        counts = rng.integers(2, m, c)
+        counts[0] = counts[1] = 0
+        counts[2] = m
+        counts[3] = 1
+        valid = np.arange(m)[None, :] < counts[:, None]
+    return (_t(feat), _t(valid), _t(protos), _t(gumbel))
+
+
+@pytest.mark.parametrize("momentum", [0.9, 0.0])
+@pytest.mark.parametrize("kind", ["tiny", "prefix", "scattered"])
+def test_k3_schedule_matches_the_twin(kind, momentum):
+    feat, valid, protos_n, gumbel = _schedule_case(kind)
+    want = k3.proto_tail_reference(feat, valid, protos_n, gumbel,
+                                   momentum=momentum, ignore_cls=0)
+    got = _k3_schedule(feat, valid, protos_n, gumbel, momentum)
+    err = float((got - want).abs().max())
+    print(f"K3 schedule vs twin, {kind}, momentum {momentum}: max abs err "
+          f"{err:.3e}")
+    assert err <= 1e-6
+    # the empty and ignore classes keep l2(memory)
+    np.testing.assert_allclose(got[:2].numpy(), _l2n(protos_n[:2]).numpy(),
+                               rtol=0, atol=1e-6)
 
 
 def test_prototype_diagnostics(data):

@@ -316,8 +316,7 @@ def test_select_ratio_schedule_matches():
 
 def test_step_draws_its_own_noise_and_frozen_memory():
     """With noise=None the step draws from the state's generator (same seed,
-    same result; dropout is off because Dropout2d draws from torch's global
-    generator); with use_prototype off the memory stays frozen."""
+    same result); with use_prototype off the memory stays frozen."""
     cfg = _no_dropout(preset("tiny"))
     host = synthetic_batch(np.random.default_rng(1), cfg, 1, n_points=2000,
                            weak_ratio=0.02)
@@ -340,3 +339,57 @@ def test_step_draws_its_own_noise_and_frozen_memory():
                                      with_contrast=True)(state, batch, RATIO)
     assert torch.equal(state.prototypes, before)
     assert float(m["diag"]["proto_drift"]) == 0.0
+
+
+def _two_warmup_steps(cfg, batch, global_seed, generator_seed=None):
+    """Two warmup steps (the first runs at lr 0) from build_state(seed=0),
+    with torch's global generator seeded to ``global_seed`` first."""
+    torch.manual_seed(global_seed)
+    state = tsetup.build_state(cfg, device="cpu", seed=0, steps_per_epoch=1)
+    if generator_seed is not None:
+        state.generator.manual_seed(generator_seed)
+    step = tstep.make_train_step(cfg, tsetup.build_alpha(cfg),
+                                 with_contrast=False)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["losses"]["total"]))
+    return state.model.state_dict(), losses
+
+
+def test_dropout_draws_from_the_state_generator():
+    """At dropout 0.2 the step's channel masks come from state.generator:
+    two runs from one seed give equal parameters, BatchNorm statistics and
+    losses whatever torch's global generator holds; another generator seed
+    gives other masks, so other statistics and parameters."""
+    cfg = preset("tiny")
+    assert cfg.model.dropout_rate == pytest.approx(0.2)
+    host = synthetic_batch(np.random.default_rng(2), cfg, 2, n_points=2000,
+                           weak_ratio=0.02)
+    batch = tstep.batch_to_device(host, torch.device("cpu"))
+    sd_a, loss_a = _two_warmup_steps(cfg, batch, global_seed=1)
+    sd_b, loss_b = _two_warmup_steps(cfg, batch, global_seed=99)
+    assert loss_a == loss_b
+    for k in sd_a:
+        assert torch.equal(sd_a[k], sd_b[k]), k
+    sd_c, loss_c = _two_warmup_steps(cfg, batch, global_seed=1,
+                                     generator_seed=12345)
+    assert loss_c != loss_a
+    differ = [k for k in sd_a if not torch.equal(sd_a[k], sd_c[k])]
+    assert any(k.endswith("weight") for k in differ)
+    assert any("running" in k for k in differ)
+
+
+def test_dropout_needs_a_generator_in_training():
+    from coarse3d_tpu_torch.models.blocks import Dropout2d
+
+    drop = Dropout2d(0.5).train()
+    x = torch.ones(3, 64, 2, 2)
+    with pytest.raises(ValueError, match="generator"):
+        drop(x)
+    y = drop(x, torch.Generator().manual_seed(0))
+    kept = y[:, :, 0, 0]
+    # whole channels, kept ones scaled by 1/(1 - p)
+    assert set(torch.unique(kept).tolist()) == {0.0, 2.0}
+    assert torch.equal(y, kept[:, :, None, None].expand_as(y))
+    assert torch.equal(drop.eval()(x), x)
