@@ -5,9 +5,14 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. builds the port's CUDA kernels from csrc/ with nvcc (all at once);
+1. builds the port's CUDA kernels from csrc/ with nvcc (all at once) and
+   the native host preprocessing library with g++;
 2. K1 (projection scatter-min) at KITTI size (B=16 scans of 120k points
-   padded to 150k, 64x2048 images), kernel vs its plain twin: exact;
+   padded to 150k, 64x2048 images), kernel vs its plain twin: exact, for
+   the scatter-min entry and for the fused projection entry (all four
+   images, both mask conventions), also at a conflict case (every valid
+   point of an image on one pixel, depths tied), at B=1, at a P that 4 does
+   not divide and at C=5; per-launch device times (torch.profiler);
 3. K2 (KNN vote) on the same projection, 20 classes, in two point orders
    (the scans' random order, and each scan sorted by flat pixel, the ring
    order of a real scan): kernel vs twin: exact in both;
@@ -42,9 +47,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relative, contrast within 1e-2 (an anchor draw may fall on the other
    side of a CDF boundary), the memory after the step within 1e-4;
 8. training timings (CUDA events, median of 10 after warm-up): the
-   contrast and warmup steps, their stages, peak memory.
+   contrast and warmup steps, their stages, peak memory;
+9. the run loop at full width through the CLIs: ``tools/train.py`` for 2
+   epochs of 4 steps on 16 synthetic scans (a warmup epoch, a contrast
+   epoch, a KNN validation epoch after each), then ``--resume --epochs 3``,
+   then ``tools/evaluate.py --run_dir --ckpt latest --knn``: K3 launched
+   in the contrast epochs and K2 in validation, losses finite, rolling and
+   best checkpoints exist and at most two rolling ones remain, the resumed
+   run starts at epoch 2 with the saved step and learning rate, and
+   evaluate's confusion matrix equals the Trainer's last validation's
+   count for count;
+9b. the Trainer driven directly on 32 such scans: steps/s of a warmup
+   and a contrast epoch of 8 steps beside the bare step (an epoch's time
+   holds its fixed costs: the first batch's wait, the log read at step 0,
+   the read at its end), mean data wait (DT) and enqueue time (PT), the
+   host's waits for the card in two steady steps of each kind
+   (torch.profiler), checkpoint save / restore seconds and size.
 
-The build fails the run if ptxas reports a spill in K2's or K3's kernels.
+The build fails the run if ptxas reports a spill in any kernel.
 It prints the card's name and power limit (nvidia-smi), one line per timing
 tagged with them, a ``{"kernels": [...]}`` line (K2's time in both point
 orders, K3's at both sizes and per pass, beside the common fields), and last
@@ -195,10 +215,13 @@ def ptxas_report(log_path: str):
                 # the kernel's own name, and its template arguments, out of
                 # the mangled one
                 name = re.search(r"(row_pass|class_pass|live_tiles|tile_[a-z]+"
-                                 r"|scatter_min_keys|decode_keys)", m.group(1))
+                                 r"|scatter_min_keys|decode_keys|scatter_keys|emit_pixels)",
+                                 m.group(1))
                 args = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+                flag = re.search(r"ILb([01])E", m.group(1))
                 func = (name.group(1) if name else m.group(1)) + (
-                    "<%s,%s>" % args.groups() if args else "")
+                    "<%s,%s>" % args.groups() if args else
+                    "<%s>" % flag.group(1) if flag else "")
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line and func:
@@ -216,6 +239,114 @@ def pixel_sorted(prange, pxi, pyi, w: int):
     idx = torch.argsort(pyi.long() * w + pxi.long(), dim=1, stable=True)
     return tuple(torch.gather(t, 1, idx).contiguous()
                  for t in (prange, pxi, pyi))
+
+
+def profile_launches(fn, reps: int = 10) -> dict[str, float]:
+    """Mean device time in microseconds of each kernel (and memset) that
+    ``reps`` calls of fn() launch, by name (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0 and not e.key.startswith("aten::"):
+            name = e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0].strip()
+            out[name] = e.device_time_total / reps
+    check(bool(out), "torch.profiler recorded no device time")
+    return out
+
+
+def k1_phase(k1, points, valid, sensor, tag):
+    """Phase 2: both K1 entries against their twins, exactly, at the
+    serving batch and at the edge cases; their times, per-launch device
+    times, and both bounds."""
+    import torch
+
+    from coarse3d_tpu_torch.ops.projection import scatter_inputs
+
+    hw = sensor.proj_h * sensor.proj_w
+    flat, depth, _, _ = scatter_inputs(points, valid, sensor)
+    dev = flat.device
+    b, p = flat.shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pix = torch.randint(0, hw, (b, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    odd = p - 3                       # 4 does not divide it
+    check(odd % 4 != 0, f"P - 3 = {odd} divides by 4")
+    cases = {
+        "serving batch": (flat, depth, points),
+        # every valid point of an image on one pixel, depths in {1, 2, 3}:
+        # the lowest index among the many points at depth 1 must win
+        "one pixel an image": (
+            torch.where(valid, pix, hw).to(torch.int32).contiguous(),
+            torch.randint(1, 4, (b, p), generator=gen,
+                          device=dev).float(), points),
+        "B=1": (flat[:1].contiguous(), depth[:1].contiguous(),
+                points[:1].contiguous()),
+        f"P={odd}": (flat[:, :odd].contiguous(), depth[:, :odd].contiguous(),
+                     points[:, :odd].contiguous()),
+        "C=5": (flat, depth,
+                torch.cat([points, points[..., :1] * 2], dim=-1).contiguous()),
+    }
+    err = 0.0
+    for name, (fl, de, pts) in cases.items():
+        got = k1.scatter_min(fl, de, hw)
+        want = k1.scatter_min_reference(fl, de, hw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K1 scatter_min differs from its twin ({name})")
+        err = max(err, float((got[0] - want[0]).abs().max()))
+        for excl0 in (False, True):
+            got = k1.project_scatter(fl, de, pts, hw, excl0)
+            want = k1.project_scatter_reference(fl, de, pts, hw, excl0)
+            torch.cuda.synchronize()
+            for key in want:
+                check(got[key].dtype == want[key].dtype
+                      and torch.equal(got[key], want[key]),
+                      f"K1 project_scatter {key} differs from its twin "
+                      f"({name}, mask_excludes_point0={excl0})")
+                err = max(err, float((got[key].float()
+                                      - want[key].float()).abs().max()))
+    hit_rate = float((k1.scatter_min(flat, depth, hw)[1] < p).float().mean())
+    print(f"K1 B={b} P={p} hw={hw}: scatter_min and project_scatter (4 "
+          f"images, both masks) == their twins exactly at {list(cases)}; "
+          f"{hit_rate:.4f} of pixels hit")
+
+    runs = {
+        "scatter_min": lambda: k1.scatter_min(flat, depth, hw),
+        "project_scatter": lambda: k1.project_scatter(flat, depth, points,
+                                                      hw),
+    }
+    ms = {name: time_ms(fn) for name, fn in runs.items()}
+    plain = time_ms(lambda: k1.scatter_min_reference(flat, depth, hw))
+    fused_plain = time_ms(lambda: k1.project_scatter_reference(
+        flat, depth, points, hw))
+    prof = {name: profile_launches(fn) for name, fn in runs.items()}
+    # neither entry does float arithmetic (one 64-bit atomic a point, one
+    # decode and copy a pixel), so bytes bound both: inputs read once,
+    # outputs written once
+    out = k1.project_scatter(flat, depth, points, hw)
+    sm_bytes = nbytes(flat, depth, *k1.scatter_min(flat, depth, hw))
+    fused_bytes = nbytes(flat, depth, points, *out.values())
+    res = {"err": err, "ms": ms["scatter_min"], "plain": plain,
+           "bytes": sm_bytes, "bound": sm_bytes / HBM_BYTES_PER_S * 1e3,
+           "fused_ms": ms["project_scatter"], "fused_plain": fused_plain,
+           "fused_bytes": fused_bytes,
+           "fused_bound": fused_bytes / HBM_BYTES_PER_S * 1e3,
+           "profile_us": prof}
+    for name, launches in prof.items():
+        print(f"profile {tag} K1 {name}, device time per launch: "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in launches.items())
+              + f"; sum {sum(launches.values()):.1f} us")
+    return res
 
 
 def k3_case(dev, seed: int = 3):
@@ -516,6 +647,156 @@ def train_timings(cfg, dev, state, batch, tag):
     ]
     for line in lines:
         print(f"timing {tag} {line}")
+    return {"contrast_ms": t_con, "warmup_ms": t_warm}
+
+
+RUN_SCANS = 16              # synthetic scans in the run loop's catalog
+TIMED_SCANS = 32            # and in the catalog of phase 9b's timed epochs
+RUN_LOOP_ARGS = ["--preset", "kitti", "--synthetic", str(RUN_SCANS),
+                 "--synthetic_points", str(N_POINTS), "--batch_size",
+                 str(TRAIN_BATCH), "--set", "contrast.contrast_warmup=1",
+                 "--set", "train.val_use_knn=true"]
+
+
+def run_loop_phase(dev, k2, k3):
+    """Phase 9: train 2 epochs, resume for a third, evaluate the run dir,
+    all through the CLIs' main()."""
+    import torch
+
+    from coarse3d_tpu_torch.tools import evaluate as evaluate_cli
+    from coarse3d_tpu_torch.tools import train as train_cli
+
+    steps = RUN_SCANS // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        ckpt_dir = os.path.join(run_dir, "checkpoint")
+        common = RUN_LOOP_ARGS + ["--save_path", run_dir, "--device",
+                                  dev.type]
+        k3.proto_tail.launches = 0
+        k2.knn_vote.launches = 0
+        trainer = train_cli.main(common + ["--epochs", "2"])
+        torch.cuda.synchronize()
+        first = {"proto_tail": k3.proto_tail.launches,
+                 "knn_vote": k2.knn_vote.launches}
+        hist = trainer.history
+        check([(h["epoch"], h["mode"], h["with_contrast"]) for h in hist]
+              == [(0, "Train", False), (0, "Validation", False),
+                  (1, "Train", True), (1, "Validation", False)],
+              f"epochs ran out of order: {hist}")
+        check(first["proto_tail"] == steps,
+              f"K3 launched {first['proto_tail']} times in a contrast epoch "
+              f"of {steps} steps")
+        check(first["knn_vote"] == 2 * trainer.val_pipe.steps_per_epoch(),
+              f"K2 launched {first['knn_vote']} times in two validation "
+              "epochs")
+        for h in hist:
+            check(all(np.isfinite(v) for v in h["loss"].values())
+                  and np.isfinite(h["3DIOU"]),
+                  f"epoch {h['epoch']} {h['mode']}: not finite: {h}")
+        check(trainer.state.step == 2 * steps, f"step {trainer.state.step}")
+        saved = sorted(os.listdir(ckpt_dir))
+        check(saved == ["best_3DAcc.pth", "best_3DIOU.pth", "epoch_0000.pth",
+                        "epoch_0001.pth"], f"checkpoints: {saved}")
+        want_lr = trainer.state.optimizer.param_groups[0]["lr"]
+
+        resumed = train_cli.main(common + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        check(resumed.resumed is not None and resumed.resumed["epoch"] == 1
+              and resumed.resumed["step"] == 2 * steps
+              and resumed.resumed["lr"] == want_lr,
+              f"resume restored {resumed.resumed}, expected epoch 1, step "
+              f"{2 * steps}, lr {want_lr}")
+        check([h["epoch"] for h in resumed.history] == [2, 2]
+              and resumed.state.step == 3 * steps,
+              f"the resumed run ran {resumed.history}")
+        check(all(np.isfinite(v) for h in resumed.history
+                  for v in h["loss"].values()), "resumed run: loss not finite")
+        rolling = sorted(f for f in os.listdir(ckpt_dir)
+                         if f.startswith("epoch_"))
+        check(rolling == ["epoch_0001.pth", "epoch_0002.pth"],
+              f"rolling checkpoints after resume: {rolling}")
+        last_val = resumed.history[-1]
+        cfg = resumed.cfg
+
+        summary = os.path.join(tmp, "summary.json")
+        out = evaluate_cli.main([
+            "--preset", "kitti", "--synthetic", str(max(RUN_SCANS // 4, 1)),
+            "--synthetic_points", str(N_POINTS), "--synthetic_seed",
+            str(cfg.train.seed + 1), "--batch_size", str(TRAIN_BATCH),
+            "--run_dir", run_dir, "--ckpt", "latest", "--knn",
+            "--summary_json", summary, "--device", dev.type])
+        with open(summary) as f:
+            written = json.load(f)
+        check(written["mIoU_3D"] == out["mIoU_3D"], "summary_json differs")
+        conf = np.asarray(out["confusion"], dtype=np.int64)
+        check(conf.sum() > 0 and np.array_equal(conf, last_val["confusion"]),
+              f"evaluate's confusion matrix differs from the Trainer's last "
+              f"validation's in {int((conf != last_val['confusion']).sum())} "
+              f"cells (mIoU {out['mIoU_3D']} against {last_val['3DIOU']})")
+        launches = {"proto_tail": k3.proto_tail.launches,
+                    "knn_vote": k2.knn_vote.launches}
+    print(f"run loop: train 2 epochs x {steps} steps (warmup, contrast) + "
+          f"resume 1 epoch + evaluate; launches {launches}; losses "
+          f"{[round(h['loss'].get('total', 0.0), 4) for h in hist + resumed.history if h['mode'] == 'Train']}; "
+          f"resumed at epoch {resumed.resumed['epoch'] + 1}, step "
+          f"{resumed.resumed['step']}, lr {resumed.resumed['lr']:.6g}; "
+          f"rolling {rolling}; evaluate's confusion matrix ({int(conf.sum())} "
+          f"points, mIoU {out['mIoU_3D']}) == the last validation's (mIoU "
+          f"{last_val['3DIOU']:.6f}) count for count")
+    return launches
+
+
+def run_loop_timings(cfg, dev, bare, tag):
+    """Phase 9b: what the Trainer adds to the bare step."""
+    import torch
+
+    from coarse3d_tpu_torch.configs import apply_overrides
+    from coarse3d_tpu_torch.data.pipeline import DataPipeline
+    from coarse3d_tpu_torch.data.synthetic import SyntheticDataset
+    from coarse3d_tpu_torch.train.trainer import Trainer
+    from coarse3d_tpu_torch.utils.profiling import count_calls
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = apply_overrides(cfg, ["contrast.contrast_warmup=1"])
+        cfg = dataclasses.replace(cfg, save_path=tmp, train=dataclasses.replace(
+            cfg.train, n_epochs=2, batch_size_train=TRAIN_BATCH,
+            batch_size_val=TRAIN_BATCH))
+        ds = SyntheticDataset(TIMED_SCANS, N_POINTS, cfg.data.n_classes,
+                              cfg.sensor, seed=cfg.train.seed)
+        pipes = [DataPipeline(ds, cfg, TRAIN_BATCH, train=t,
+                              seed=cfg.train.seed, pin_memory=True)
+                 for t in (True, False)]
+        trainer = Trainer(cfg, *pipes, device=dev)
+        for epoch, kind in ((0, "warmup"), (1, "contrast")):
+            trainer.run_epoch(epoch, "Train")      # warm: scans get cached
+            trainer.run_epoch(epoch, "Train")
+            t = dict(trainer.last_epoch_timing)
+            ms = t["epoch_s"] / t["steps"] * 1e3
+            trainer.profile_steps, trainer.profile_epoch = (1, 3), epoch
+            trainer.run_epoch(epoch, "Train")
+            trainer.profile_steps = None
+            calls = trainer.last_profile_syncs
+            print(f"timing {tag} Trainer {kind} epoch of {t['steps']} steps "
+                  f"B={TRAIN_BATCH}: {ms:.3f} ms/step, {1e3 / ms:.3f} "
+                  f"steps/s (bare step {bare[kind + '_ms']:.3f} ms); mean "
+                  f"DT {t['data_s'] * 1e3:.3f} ms (first step "
+                  f"{t['data_first_s'] * 1e3:.3f} ms, later steps "
+                  f"{t['data_later_s'] * 1e3:.3f} ms), mean PT "
+                  f"{t['proc_s'] * 1e3:.3f} ms; host waits in 2 steady "
+                  f"steps: {count_calls(calls)} synchronisations, "
+                  f"{count_calls(calls, ('cudaMemcpyAsync', 'cudaMemcpy'))} "
+                  f"copies: {calls}")
+        t0 = time.perf_counter()
+        trainer.ckpt.save_rolling(trainer.state, 1)
+        save_s = time.perf_counter() - t0
+        path = os.path.join(trainer.ckpt.root, "epoch_0001.pth")
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        trainer.ckpt.restore(trainer.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        print(f"timing {tag} checkpoint: save {save_s:.3f} s, restore "
+              f"{restore_s:.3f} s, {size_mb:.1f} MB")
 
 
 def main() -> int:
@@ -535,6 +816,7 @@ def main() -> int:
     from coarse3d_tpu_torch.ops import proto_update as k3
     from coarse3d_tpu_torch.ops._build import build_all
     from coarse3d_tpu_torch.ops.knn import knn_postprocess, pack_range_image
+    from coarse3d_tpu_torch import native
     from coarse3d_tpu_torch.ops.projection import (
         build_range_features,
         normalize_features,
@@ -550,16 +832,30 @@ def main() -> int:
     tag = f"[{card}]"
 
     # -- 1. build ----------------------------------------------------------
+    phase_s: dict[str, float] = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        torch.cuda.synchronize()
+        phase_s[name] = round(time.perf_counter() - t_phase, 1)
+        t_phase = time.perf_counter()
+
     t0 = time.perf_counter()
-    build_all([k1.LIBRARY, k2.LIBRARY, k3.LIBRARY])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, three sources "
-          "at once)")
-    for lib in (k1.LIBRARY, k2.LIBRARY, k3.LIBRARY):
+    libs = [k1.LIBRARY, k2.LIBRARY, k3.LIBRARY]
+    build_all(libs)
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, {len(libs)} "
+          "sources at once)")
+    for lib in libs:
         for func, regs, spill in ptxas_report(lib.log_path):
             print(f"ptxas {lib.name} {func}: {regs}; {spill}")
-            check(lib is k1.LIBRARY
-                  or " 0 bytes spill stores, 0 bytes spill loads" in spill,
+            check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
                   f"ptxas: {lib.name} {func} spills: {spill}")
+    check(native.available(), "the native host preprocessing library did "
+          "not build (g++): the run loop's samples would come from numpy")
+    print("host preprocessing: native library built (g++); build_sample "
+          "projects through it")
+    phase_done("1 build")
 
     cfg = preset("kitti")
     sensor, knn_cfg, n_classes = cfg.sensor, cfg.knn, cfg.data.n_classes
@@ -569,22 +865,8 @@ def main() -> int:
     valid = torch.from_numpy(host[0][1]).to(dev)
 
     # -- 2. K1 -------------------------------------------------------------
-    flat, depth, _, _ = scatter_inputs(points, valid, sensor)
-    got_d, got_w = k1.scatter_min(flat, depth, hw)
-    want_d, want_w = k1.scatter_min_reference(flat, depth, hw)
-    torch.cuda.synchronize()
-    check(torch.equal(got_d, want_d) and torch.equal(got_w, want_w),
-          "K1 scatter_min differs from its twin")
-    k1_err = float((got_d - want_d).abs().max())
-    hit_rate = float((got_w < flat.shape[1]).float().mean())
-    k1_ms = time_ms(lambda: k1.scatter_min(flat, depth, hw))
-    k1_plain = time_ms(lambda: k1.scatter_min_reference(flat, depth, hw))
-    # K1 does no float arithmetic: one 64-bit atomic per point, one decode
-    # per pixel, so bytes bound it
-    k1_bytes = nbytes(flat, depth, got_d, got_w)
-    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"K1 proj_scatter_min B={BATCH} P={flat.shape[1]} hw={hw}: "
-          f"kernel == twin exactly; {hit_rate:.4f} of pixels hit")
+    k1r = k1_phase(k1, points, valid, sensor, tag)
+    phase_done("2 K1")
 
     # -- 3. K2 -------------------------------------------------------------
     proj = range_project_batch(points, valid, sensor)
@@ -625,9 +907,11 @@ def main() -> int:
           f"k={knn_cfg.knn} S={knn_cfg.search}: kernel == twin exactly in "
           f"{' and '.join(orders)} order")
     del proj, packed, got, want, orders
+    phase_done("3 K2")
 
     # -- 3b. K3 ------------------------------------------------------------
     k3_dense = k3_phase(k3, *k3_case(dev), ignore=0, name="dense", tag=tag)
+    phase_done("3b K3 dense")
 
     # -- 4. the serving path -------------------------------------------------
     state = calibrated_state(cfg, host[0][0][:2], host[0][1][:2])
@@ -649,6 +933,7 @@ def main() -> int:
         torch.save(model.state_dict(), weights)
 
         k1.scatter_min.launches = 0
+        k1.project_scatter.launches = 0
         k2.knn_vote.launches = 0
         labels = [infer(torch.from_numpy(p), torch.from_numpy(v))
                   for p, v in host[1:N_REQUESTS + 1]]
@@ -657,8 +942,12 @@ def main() -> int:
                         os.path.join(tmp, "preds"), "--batch_size", "2",
                         "--device", dev.type])
         torch.cuda.synchronize()
-        launches = {"proj_scatter_min": k1.scatter_min.launches,
+        # K1's two wrappers launch the same kernel; the served path goes
+        # through the fused one, and only that one counts for it
+        launches = {"proj_scatter_min": k1.project_scatter.launches,
                     "knn_vote": k2.knn_vote.launches}
+        check(k1.scatter_min.launches == 0,
+              "the serving path called scatter_min beside project_scatter")
         print(f"main path: {N_REQUESTS} batches of {BATCH} scans + "
               f"tools/infer.py on {n_bin} .bin scans; launches {launches}")
         check(all(n > 0 for n in launches.values()),
@@ -700,6 +989,7 @@ def main() -> int:
           f"label agreement {agree:.6f} (CPU run {cpu_s:.1f} s); classes "
           f"seen {torch.unique(cpu[0, :n_valid]).tolist()}")
     check(agree >= 0.99, f"CPU vs card agreement {agree} < 0.99")
+    phase_done("4 serving path")
 
     # -- 5. timings ----------------------------------------------------------
     with torch.inference_mode():
@@ -715,6 +1005,7 @@ def main() -> int:
         x = features()
         am = torch.argmax(model(x)["logits"], dim=1).to(torch.int32)
         t_proj = time_ms(lambda: range_project_batch(points, valid, sensor))
+        t_coord = time_ms(lambda: scatter_inputs(points, valid, sensor))
         t_feat = time_ms(features)
         t_fwd = time_ms(lambda: model(x)["logits"])
         t_knn = time_ms(lambda: knn_postprocess(
@@ -727,9 +1018,14 @@ def main() -> int:
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for line in (
-        f"K1 proj_scatter_min: kernel {k1_ms:.4f} ms, twin {k1_plain:.4f} ms, "
-        f"bound {k1_bound:.4f} ms ({k1_bytes / 1e6:.1f} MB at 3.35 TB/s); "
+        f"K1 scatter_min: kernel {k1r['ms']:.4f} ms, twin "
+        f"{k1r['plain']:.4f} ms, bound "
+        f"{k1r['bound']:.4f} ms ({k1r['bytes'] / 1e6:.1f} MB at 3.35 TB/s); "
         "library: none (no single PyTorch call computes it)",
+        f"K1 project_scatter (fused projection): kernel "
+        f"{k1r['fused_ms']:.4f} ms, twin {k1r['fused_plain']:.4f} ms, bound "
+        f"{k1r['fused_bound']:.4f} ms ({k1r['fused_bytes'] / 1e6:.1f} MB at "
+        "3.35 TB/s); library: none",
         f"K2 knn_vote, random order: kernel {k2_ms:.4f} ms, twin "
         f"{k2_plain:.4f} ms; pixel-sorted order: kernel "
         f"{k2_ms_by['pixel_sorted']:.4f} ms, twin "
@@ -738,6 +1034,10 @@ def main() -> int:
         f"{k2_bytes_ms:.4f} ms; {k2_ops / 1e9:.3f} G float32 ops at 67 "
         f"TFLOP/s: {k2_ops_ms:.4f} ms); "
         "library: none (no single PyTorch call computes it)",
+        f"projection B={BATCH}: {t_proj:.3f} ms = coordinate math "
+        f"(scatter_inputs) {t_coord:.3f} ms + K1 project_scatter "
+        f"{k1r['fused_ms']:.3f} ms + rest (allocation, views) "
+        f"{t_proj - t_coord - k1r['fused_ms']:.3f} ms",
         f"stages B={BATCH}: projection {t_proj:.3f} ms, features "
         f"{t_feat:.3f} ms, SalsaNext bf16 forward {t_fwd:.3f} ms, KNN "
         f"{t_knn:.3f} ms",
@@ -754,8 +1054,11 @@ def main() -> int:
     ):
         print(f"timing {tag} {line}")
 
+    phase_done("5 serving timings")
+
     # -- 6-8. the training path ----------------------------------------------
     state, tbatch, thost, train_launches = train_phase(cfg, dev)
+    phase_done("6 training path")
     k3_train = k3_phase(k3, *k3_training_case(cfg, dev, state, tbatch),
                         ignore=cfg.train.ignore_cls, name="training batch",
                         tag=tag)
@@ -763,20 +1066,42 @@ def main() -> int:
           f"({k3_train['rows']} valid rows): kernel {k3_train['ms']:.4f} ms, "
           f"twin {k3_train['plain']:.4f} ms, bound {k3_train['bound']:.4f} ms"
           f" ({k3_train['by']})")
+    phase_done("6b K3 training batch")
     train_cpu_vs_card(cfg, dev, thost)
-    train_timings(cfg, dev, state, tbatch, tag)
+    phase_done("7 training CPU vs card")
+    bare = train_timings(cfg, dev, state, tbatch, tag)
+    phase_done("8 training timings")
+    del state, tbatch, thost
+
+    # -- 9. the run loop -------------------------------------------------------
+    loop_launches = run_loop_phase(dev, k2, k3)
+    phase_done("9 run loop (CLIs)")
+    run_loop_timings(cfg, dev, bare, tag)
+    phase_done("9b run loop timings")
+    print(f"timing {tag} wall seconds per phase: {phase_s}")
 
     kernels = [
         {"name": "proj_scatter_min", "route": "cuda",
          "source": "coarse3d_tpu_torch/csrc/proj_scatter.cu",
          "replaces": "coarse3d_tpu/ops/pallas/proj_scatter.py:57",
-         "launches": launches["proj_scatter_min"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": None},
+         # the headline fields are those of the entry the served path
+         # launches (project_scatter); scatter_min's own stand beside them
+         "entry": "project_scatter",
+         "launches": launches["proj_scatter_min"], "max_abs_err": k1r["err"],
+         "ms": k1r["fused_ms"], "plain_ms": k1r["fused_plain"],
+         "bound_ms": k1r["fused_bound"], "bound_by": "bytes",
+         "library_ms": None,
+         "scatter_min": {"launches": 0, "ms": k1r["ms"],
+                         "plain_ms": k1r["plain"], "bound_ms": k1r["bound"]},
+         "launch_us": k1r["profile_us"]},
         {"name": "knn_vote", "route": "cuda",
          "source": "coarse3d_tpu_torch/csrc/knn_vote.cu",
          "replaces": "coarse3d_tpu/ops/pallas/knn_vote.py:34",
-         "launches": launches["knn_vote"], "max_abs_err": k2_err,
+         "launches": launches["knn_vote"],
+         "launches_by_path": {"serving": launches["knn_vote"],
+                              "training": train_launches["knn_vote"],
+                              "run_loop": loop_launches["knn_vote"]},
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None,
          "ms_by_order": k2_ms_by, "plain_ms_by_order": k2_plain_by},
@@ -784,6 +1109,8 @@ def main() -> int:
          "source": "coarse3d_tpu_torch/csrc/proto_update.cu",
          "replaces": "coarse3d_tpu/ops/pallas/proto_update.py:40",
          "launches": train_launches["proto_tail"],
+         "launches_by_path": {"training": train_launches["proto_tail"],
+                              "run_loop": loop_launches["proto_tail"]},
          "max_abs_err": max(k3_dense["err"], k3_train["err"]),
          "ms": k3_dense["ms"], "plain_ms": k3_dense["plain"],
          "bound_ms": k3_dense["bound"], "bound_by": k3_dense["by"],

@@ -98,11 +98,16 @@ def entropy_based_selection(
     weak_seg = torch.where(wss_m & (gt >= 0) & (gt < c),
                            img * seg_per_img + gt, n_seg)
     weak_present = torch.zeros(n_seg + 1, dtype=torch.bool, device=dev)
-    weak_present[weak_seg.long()] = True
+    # index_fill_ takes the Python scalar as it is; ``x[idx] = True`` would
+    # build a host tensor and copy it over, which makes the host wait
+    weak_present.index_fill_(0, weak_seg.long(), True)
     weak_present = weak_present[:n_seg]
 
     seg_cls = torch.arange(n_seg, dtype=torch.int32, device=dev) % seg_per_img
-    ratio = torch.as_tensor(select_ratio, dtype=torch.float32, device=dev)
+    # a Python float multiplies as a float32 scalar, with no copy to the
+    # device (a copy from pageable memory makes the host wait)
+    ratio = (select_ratio.to(dev, torch.float32)
+             if torch.is_tensor(select_ratio) else float(select_ratio))
     k_per_seg = torch.floor(counts.to(torch.float32) * ratio).to(torch.int32)
     k_eff = torch.where(
         weak_present & (seg_cls != ignore_cls) & (seg_cls != c)

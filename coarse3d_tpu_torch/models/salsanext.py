@@ -30,6 +30,11 @@ from coarse3d_tpu_torch.models.blocks import (
 )
 from coarse3d_tpu_torch.ops.resize import resize_bilinear
 
+# Encoder parameter prefixes for encoder-only pretrained loads: the
+# 198-name encoder_module.yaml analog (trainer.py:91-94, option.py:93-95),
+# under the reference's module names, which this model uses.
+ENCODER_PREFIXES = ("downCntx", "resBlock")
+
 
 class SalsaNext(nn.Module):
     def __init__(self, n_classes: int, in_channels: int = 5,

@@ -12,21 +12,22 @@ ties to the lowest point index.
 JAX package's numpy host path (the data pipeline's projection, which the
 synthetic training batch uses): the same numpy inputs give the same arrays.
 
-The per-pixel winner is kernel K1 (:func:`ops.proj_scatter.scatter_min`)
-on a CUDA tensor and its plain twin on a CPU tensor; the winner-row gather
-and the coordinate math stay plain tensor ops, as they stayed XLA outside
-the TPU kernel.
+The per-pixel winner, the winner-row gather and the fills are kernel K1
+(:func:`ops.proj_scatter.project_scatter`) on a CUDA tensor and its plain
+twin on a CPU tensor; the coordinate math before it stays plain tensor ops,
+as it stayed XLA outside the TPU kernel.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 from coarse3d_tpu_torch.configs.config import SensorSpec
-from coarse3d_tpu_torch.ops.proj_scatter import scatter_min
+from coarse3d_tpu_torch.ops.proj_scatter import project_scatter
 
 
 def _fov_params(sensor: SensorSpec) -> tuple[float, float, float, float]:
@@ -154,26 +155,13 @@ def range_project_batch(
     b, p, c = points.shape
     h, w = sensor.proj_h, sensor.proj_w
     flat, depth, px, py = scatter_inputs(points, valid, sensor)
-    min_depth, win_local = scatter_min(flat, depth, h * w)
-
-    hit = win_local < p
-    proj_idx = torch.where(hit, win_local, -1).view(b, h, w)
-    proj_range = torch.where(hit, min_depth, -1.0).view(b, h, w)
-    base = torch.arange(b, device=points.device, dtype=torch.int64)[:, None] * p
-    rows = points.reshape(b * p, c)[
-        (base + win_local.clamp(0, p - 1).long()).reshape(-1)]
-    proj_points = torch.where(hit.reshape(-1, 1), rows, -1.0).view(b, h, w, c)
-
-    if mask_excludes_point0:
-        proj_mask = (proj_idx > 0).to(torch.int32)
-    else:
-        proj_mask = (proj_idx >= 0).to(torch.int32)
-
+    out = project_scatter(flat, depth, points.contiguous(), h * w,
+                          mask_excludes_point0)
     return {
-        "proj_points": proj_points,
-        "proj_range": proj_range,
-        "proj_idx": proj_idx,
-        "proj_mask": proj_mask,
+        "proj_points": out["proj_points"].view(b, h, w, c),
+        "proj_range": out["proj_range"].view(b, h, w),
+        "proj_idx": out["proj_idx"].view(b, h, w),
+        "proj_mask": out["proj_mask"].view(b, h, w),
         "px": px,
         "py": py,
         "depth": depth,
@@ -194,11 +182,28 @@ def build_range_features(proj_points: torch.Tensor, proj_range: torch.Tensor
         dim=-1).float()
 
 
+def build_range_features_np(proj_points: np.ndarray, proj_range: np.ndarray
+                            ) -> np.ndarray:
+    """Numpy twin of :func:`build_range_features` (the host pipeline's)."""
+    intensity = proj_points[..., 3]
+    intensity = np.where(intensity == -1.0, 0.0, intensity)
+    return np.concatenate(
+        [proj_range[..., None], proj_points[..., :3], intensity[..., None]],
+        axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sensor_stats(mean: tuple, std: tuple, device: torch.device):
+    """The sensor's channel mean and std as tensors on ``device``, made
+    once: building them per call is a host-to-device copy of pageable
+    memory, which makes the host wait for the stream."""
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device))
+
+
 def normalize_features(features: torch.Tensor, eval_mask: torch.Tensor,
                        sensor: SensorSpec) -> torch.Tensor:
     """(x - mean) / std, zeroed outside the eval mask (trainer.py:599-609)."""
-    mean = torch.tensor(sensor.img_mean, dtype=torch.float32,
-                        device=features.device)
-    std = torch.tensor(sensor.img_stds, dtype=torch.float32,
-                       device=features.device)
+    mean, std = _sensor_stats(tuple(sensor.img_mean), tuple(sensor.img_stds),
+                              features.device)
     return (features - mean) / std * eval_mask[..., None].float()

@@ -9,9 +9,10 @@ scan files and writes SemanticKITTI benchmark-format raw-id .label files
       --preset semantic_kitti --scans 000000.bin 000001.bin --out preds/
 
 ``--weights`` is a reference-named ``.pth`` state dict: the reference's own
-checkpoints, or ``torch.save(model.state_dict())`` of the port. Runs on the
-card unless ``--device cpu`` is given. ``--run_dir`` and ``--submission``
-are not ported yet (ROADMAP.md Queue 1 item 14).
+checkpoints, or ``torch.save(model.state_dict())`` of the port;
+``--run_dir`` / ``--ckpt`` take a checkpoint of ``tools/train.py`` instead.
+``--submission`` writes the benchmark upload tree (``eval/submission.py``).
+Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -25,8 +26,12 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config")
     p.add_argument("--preset", default="semantic_kitti")
-    p.add_argument("--weights", required=True,
-                   help="reference-named .pth state dict")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--weights", help="reference-named .pth state dict")
+    src.add_argument("--run_dir", help="training run dir (tools/train.py)")
+    p.add_argument("--ckpt", default="latest",
+                   help="which --run_dir checkpoint to restore: 'latest' "
+                        "(rolling) or a best-metric key like 'best_3DIOU'")
     p.add_argument("--scans", nargs="+", default=[], help=".bin scan files")
     p.add_argument("--scan_dir", help="directory of .bin scans")
     p.add_argument("--out", required=True, help="output directory")
@@ -36,11 +41,24 @@ def main(argv=None):
     p.add_argument("--train_ids", action="store_true",
                    help="write train ids (0..C-1) instead of raw dataset "
                         "ids via the inverse learning map")
+    p.add_argument("--submission", action="store_true",
+                   help="write the benchmark submission tree under --out "
+                        "(sequences/NN/predictions/FFFFFF.label for "
+                        "KITTI/POSS, NN taken from the scan's "
+                        "sequences/NN/velodyne/ path; "
+                        "lidarseg/<split>/<token>_lidarseg.bin for nuScenes, "
+                        "token = scan file stem) instead of flat files")
+    p.add_argument("--split", default="val",
+                   help="nuScenes submission split name (with --submission)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a card) or 'cpu'")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE")
     args = p.parse_args(argv)
+
+    if args.weights and args.ckpt != "latest":
+        # mirrors evaluate.py: --ckpt only selects within --run_dir
+        raise SystemExit("--ckpt requires --run_dir, not --weights")
 
     import numpy as np
     import torch
@@ -70,8 +88,17 @@ def main(argv=None):
     if not paths:
         raise SystemExit("no scans given (--scans / --scan_dir)")
 
-    model = build_model(cfg, device=args.device)
-    model.load_state_dict(load_reference_state_dict(args.weights), strict=True)
+    if args.weights:
+        model = build_model(cfg, device=args.device)
+        model.load_state_dict(load_reference_state_dict(args.weights),
+                              strict=True)
+    else:
+        from coarse3d_tpu_torch.train.checkpoint import restore_from_run_dir
+        from coarse3d_tpu_torch.train.setup import build_state
+
+        state = build_state(cfg, device=args.device, steps_per_epoch=1)
+        model = restore_from_run_dir(state, args.run_dir,
+                                     args.ckpt).model.eval()
     infer = make_inference_fn(model, cfg, use_knn=not args.no_knn)
     read_scan = (read_nuscenes_scan if cfg.data.dataset == "nuscenes"
                  else read_kitti_scan)
@@ -89,14 +116,41 @@ def main(argv=None):
     def stem(path):
         return os.path.splitext(os.path.basename(path))[0]
 
-    names = [stem(q) for q in paths]
-    if len(set(names)) < len(names):
-        names = [f"{os.path.basename(os.path.dirname(os.path.abspath(q)))}"
-                 f"_{stem(q)}" for q in paths]
-        if len(set(names)) < len(names):
+    writer = None
+    if args.submission:
+        from coarse3d_tpu_torch.eval.submission import SubmissionWriter
+
+        if args.train_ids and cfg.data.dataset in ("semantic_kitti",
+                                                   "semantic_poss"):
+            raise SystemExit("--submission writes raw ids; drop --train_ids")
+
+        def seq_of(path):
+            # .../sequences/NN/velodyne/FFFFFF.bin -> NN; nuScenes tokens
+            # are the file stem (path_info convention: ("nusc", token))
+            if cfg.data.dataset == "nuscenes":
+                return "nusc"
+            parts = os.path.abspath(path).split(os.sep)
+            if len(parts) >= 3 and parts[-2] == "velodyne":
+                return parts[-3]
             raise SystemExit(
-                "output filenames collide even with parent-directory "
-                "prefixes; pass scans from distinct directories or rename")
+                f"--submission needs scans under sequences/NN/velodyne/, "
+                f"got {path}")
+
+        writer = SubmissionWriter(args.out, cfg.data.dataset,
+                                  label_spec=spec, split=args.split)
+        out_names = {q: (seq_of(q), stem(q)) for q in paths}
+    else:
+        names = [stem(q) for q in paths]
+        if len(set(names)) < len(names):
+            names = [
+                f"{os.path.basename(os.path.dirname(os.path.abspath(q)))}"
+                f"_{stem(q)}" for q in paths]
+            if len(set(names)) < len(names):
+                raise SystemExit(
+                    "output filenames collide even with parent-directory "
+                    "prefixes; pass scans from distinct directories or "
+                    "rename")
+        out_names = {q: n + ".label" for q, n in zip(paths, names)}
 
     os.makedirs(args.out, exist_ok=True)
     bs = args.batch_size
@@ -111,12 +165,18 @@ def main(argv=None):
             msk.append(vv)
         labels = infer(torch.from_numpy(np.stack(pts)),
                        torch.from_numpy(np.stack(msk))).cpu().numpy()
-        for j, name in enumerate(names[start:start + bs]):
+        for j, path in enumerate(chunk):
             pred = labels[j, :counts[j]].astype(np.int32)
-            if spec is not None:
-                pred = spec.unmap_labels(pred).astype(np.int32)
-            pred.tofile(os.path.join(args.out, name + ".label"))
+            if writer is not None:
+                seq_id, frame_id = out_names[path]
+                writer.write(seq_id, frame_id, pred)  # unmaps internally
+            else:
+                if spec is not None:
+                    pred = spec.unmap_labels(pred).astype(np.int32)
+                pred.tofile(os.path.join(args.out, out_names[path]))
         print(f"{min(start + bs, len(paths))}/{len(paths)} scans")
+    if writer is not None:
+        writer.finalize()
     print(f"wrote {len(paths)} prediction files -> {args.out}")
 
 

@@ -105,6 +105,7 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
             "item 15)")
     alpha_np = np.asarray(alpha, np.float32)
     ignore = cfg.train.ignore_cls
+    alpha_on: dict[torch.device, torch.Tensor] = {}  # made once per device
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor],
                    select_ratio=0.0, noise: dict[str, Any] | None = None):
@@ -118,7 +119,9 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
                 noise = draw_noise(state.generator, cfg, b, h, w)
             noise = {k: torch.as_tensor(v).to(dev, torch.float32)
                      for k, v in noise.items()}
-        alpha_t = torch.from_numpy(alpha_np).to(dev)
+        if dev not in alpha_on:
+            alpha_on[dev] = torch.from_numpy(alpha_np).to(dev)
+        alpha_t = alpha_on[dev]
 
         model.train()
         state.optimizer.zero_grad(set_to_none=True)

@@ -147,3 +147,92 @@ def test_features_match_jax():
     got = tproj.normalize_features(
         feat, torch.from_numpy(np.array(jp["proj_idx"])) >= 0, sensor)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+# -- the fused entry of K1 ----------------------------------------------------
+
+from coarse3d_tpu.ops.pallas.proj_scatter import (  # noqa: E402
+    range_project_batch_pallas,
+)
+from coarse3d_tpu_torch.ops.proj_scatter import (  # noqa: E402
+    project_from_winner,
+    project_scatter,
+    project_scatter_reference,
+)
+
+
+@pytest.mark.parametrize("mask_excludes_point0", [False, True])
+def test_project_scatter_reference_equals_pallas_projection(
+        mask_excludes_point0):
+    """K1's fused twin on JAX's own flat and depth vs
+    range_project_batch_pallas (interpret mode): proj_idx, proj_range,
+    proj_points and proj_mask exactly equal, with exact-depth ties, empty
+    pixels and a winner at point 0."""
+    kw = SENSORS["tiny"]
+    h, w = kw["proj_h"], kw["proj_w"]
+    pts, valid = _clouds(21, SensorSpec(**kw))
+    valid[:, 700:] = False        # few enough points that pixels stay empty
+    pts[:, 3] = pts[:, 0]         # point 0's twin farther along: 0 wins it
+    pts[:, 3, :3] *= 1.5
+    want = {k: np.asarray(v) for k, v in range_project_batch_pallas(
+        jnp.asarray(pts), jnp.asarray(valid), JaxSensorSpec(**kw),
+        mask_excludes_point0=mask_excludes_point0, interpret=True).items()}
+    flat = np.where(valid, want["py"] * w + want["px"], h * w).astype(np.int32)
+    got = project_scatter(
+        torch.from_numpy(flat), torch.from_numpy(want["depth"].copy()),
+        torch.from_numpy(pts), h * w, mask_excludes_point0)
+    assert (want["proj_idx"] < 0).any() and (want["proj_idx"] == 0).any()
+    for k, v in got.items():
+        ref = want[k].reshape(v.shape)
+        assert v.numpy().dtype == ref.dtype, k
+        np.testing.assert_array_equal(v.numpy(), ref, err_msg=k)
+    if mask_excludes_point0:
+        assert not got["proj_mask"][got["proj_idx"] == 0].any()
+
+
+def test_project_scatter_is_its_reference_on_cpu_and_checks_inputs():
+    rng = np.random.default_rng(3)
+    flat, depth = (torch.from_numpy(a) for a in _stream(rng, 2, 500, 7))
+    pts = torch.from_numpy(rng.normal(size=(2, 500, 5)).astype(np.float32))
+    got = project_scatter(flat, depth, pts, HW, True)
+    want = project_scatter_reference(flat, depth, pts, HW, True)
+    again = project_from_winner(*scatter_min_reference(flat, depth, HW), pts,
+                                True)
+    for k in want:
+        assert torch.equal(got[k], want[k]) and torch.equal(again[k], want[k])
+    assert got["proj_points"].shape == (2, HW, 5)
+    with pytest.raises(ValueError):
+        project_scatter(flat, depth, pts[:, :400], HW)
+    with pytest.raises(ValueError):
+        project_scatter(flat, depth, pts[0], HW)
+
+
+def test_key_packing_orders_like_depth_then_index():
+    """An int64 numpy mirror of the kernel's key,
+    (float32 bits of depth << 32) | index: sorting the keys equals sorting
+    by (depth, index), for +0, denormals, equal clamped depths and 3e38."""
+    depths = np.array([0.0, 1e-45, 1e-39, 1.1754944e-38, 0.5, 80.0, 80.0,
+                       80.0, 3.0e38, 3.0e38, 1.0, 1e-45], np.float32)
+    rng = np.random.default_rng(0)
+    depth = rng.choice(depths, 4000)
+    index = rng.permutation(4000).astype(np.int64)
+    key = (depth.view(np.uint32).astype(np.int64) << 32) | index
+    assert (key >= 0).all()                 # below the empty key, all ones
+    np.testing.assert_array_equal(np.argsort(key, kind="stable"),
+                                  np.lexsort((index, depth)))
+    # the decode is the inverse
+    np.testing.assert_array_equal(
+        (key >> 32).astype(np.uint32).view(np.float32), depth)
+    np.testing.assert_array_equal(key & 0xFFFFFFFF, index)
+
+
+def test_sensor_constants_are_made_once_per_device():
+    """normalize_features reuses the mean / std tensors: building them on
+    every call costs a card a host synchronisation each."""
+    sensor = SensorSpec(**SENSORS["tiny"])
+    args = (tuple(sensor.img_mean), tuple(sensor.img_stds),
+            torch.device("cpu"))
+    first = tproj._sensor_stats(*args)
+    x = torch.zeros(1, 2, 2, 5)
+    tproj.normalize_features(x, torch.ones(1, 2, 2, dtype=torch.bool), sensor)
+    assert tproj._sensor_stats(*args)[0] is first[0]
