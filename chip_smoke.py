@@ -64,6 +64,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    host's waits for the card in two steady steps of each kind
    (torch.profiler), checkpoint save / restore seconds and size.
 
+10. the other families, serving: RangeNet-21, SqueezeSegV3-21 and SalsaNext
+   with the width-only ``s2d_w`` stem at full width (bf16, BatchNorm
+   calibrated as in phase 4) each answer 2 batches of 16 scans through
+   ``make_inference_fn``: labels in [1, 19], K1 and K2 each launched once a
+   batch, one scan CPU vs card in float32 agrees on >= 0.99 of its points;
+   ms per batch, scans/s and peak memory per family; RangeNet-53 and
+   SqueezeSegV3-53 (uncalibrated) serve one batch each;
+11. the other families, training: RangeNet-21 and SqueezeSegV3-21 through
+   ``build_state`` / ``make_train_step`` at B=4 (D=256, K=20, M=2048): one
+   warmup and two contrast steps, every loss finite, K3 launched once a
+   contrast step, the memory unit-norm; step ms and peak memory;
+12. the CRF and the border mask: ``crf_refine`` on a served batch (B=16,
+   20 classes), card against CPU in float32 within 1e-5; ``border_mask`` on
+   the served label map, card against CPU exact; ``make_eval_step(
+   use_crf=True, use_knn=True)`` launches K2 and its confusion matrix
+   counts every valid point; ``tools/train_crf.py`` for 1 epoch on phase
+   9's run directory and ``tools/evaluate.py --crf --crf_kernel --knn`` on
+   its output, in-process; the CRF's ms at B=16 and the eval step's ms with
+   and without it.
+
 The build fails the run if ptxas reports a spill in any kernel.
 It prints the card's name and power limit (nvidia-smi), one line per timing
 tagged with them, a ``{"kernels": [...]}`` line (K2's time in both point
@@ -658,83 +678,83 @@ RUN_LOOP_ARGS = ["--preset", "kitti", "--synthetic", str(RUN_SCANS),
                  "--set", "train.val_use_knn=true"]
 
 
-def run_loop_phase(dev, k2, k3):
+def run_loop_phase(dev, k2, k3, tmp):
     """Phase 9: train 2 epochs, resume for a third, evaluate the run dir,
-    all through the CLIs' main()."""
+    all through the CLIs' main(). The run directory, ``tmp``/run, stays
+    for phase 12."""
     import torch
 
     from coarse3d_tpu_torch.tools import evaluate as evaluate_cli
     from coarse3d_tpu_torch.tools import train as train_cli
 
     steps = RUN_SCANS // TRAIN_BATCH
-    with tempfile.TemporaryDirectory() as tmp:
-        run_dir = os.path.join(tmp, "run")
-        ckpt_dir = os.path.join(run_dir, "checkpoint")
-        common = RUN_LOOP_ARGS + ["--save_path", run_dir, "--device",
-                                  dev.type]
-        k3.proto_tail.launches = 0
-        k2.knn_vote.launches = 0
-        trainer = train_cli.main(common + ["--epochs", "2"])
-        torch.cuda.synchronize()
-        first = {"proto_tail": k3.proto_tail.launches,
-                 "knn_vote": k2.knn_vote.launches}
-        hist = trainer.history
-        check([(h["epoch"], h["mode"], h["with_contrast"]) for h in hist]
-              == [(0, "Train", False), (0, "Validation", False),
-                  (1, "Train", True), (1, "Validation", False)],
-              f"epochs ran out of order: {hist}")
-        check(first["proto_tail"] == steps,
-              f"K3 launched {first['proto_tail']} times in a contrast epoch "
-              f"of {steps} steps")
-        check(first["knn_vote"] == 2 * trainer.val_pipe.steps_per_epoch(),
-              f"K2 launched {first['knn_vote']} times in two validation "
-              "epochs")
-        for h in hist:
-            check(all(np.isfinite(v) for v in h["loss"].values())
-                  and np.isfinite(h["3DIOU"]),
-                  f"epoch {h['epoch']} {h['mode']}: not finite: {h}")
-        check(trainer.state.step == 2 * steps, f"step {trainer.state.step}")
-        saved = sorted(os.listdir(ckpt_dir))
-        check(saved == ["best_3DAcc.pth", "best_3DIOU.pth", "epoch_0000.pth",
-                        "epoch_0001.pth"], f"checkpoints: {saved}")
-        want_lr = trainer.state.optimizer.param_groups[0]["lr"]
+    run_dir = os.path.join(tmp, "run")
+    ckpt_dir = os.path.join(run_dir, "checkpoint")
+    common = RUN_LOOP_ARGS + ["--save_path", run_dir, "--device",
+                              dev.type]
+    k3.proto_tail.launches = 0
+    k2.knn_vote.launches = 0
+    trainer = train_cli.main(common + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    first = {"proto_tail": k3.proto_tail.launches,
+             "knn_vote": k2.knn_vote.launches}
+    hist = trainer.history
+    check([(h["epoch"], h["mode"], h["with_contrast"]) for h in hist]
+          == [(0, "Train", False), (0, "Validation", False),
+              (1, "Train", True), (1, "Validation", False)],
+          f"epochs ran out of order: {hist}")
+    check(first["proto_tail"] == steps,
+          f"K3 launched {first['proto_tail']} times in a contrast epoch "
+          f"of {steps} steps")
+    check(first["knn_vote"] == 2 * trainer.val_pipe.steps_per_epoch(),
+          f"K2 launched {first['knn_vote']} times in two validation "
+          "epochs")
+    for h in hist:
+        check(all(np.isfinite(v) for v in h["loss"].values())
+              and np.isfinite(h["3DIOU"]),
+              f"epoch {h['epoch']} {h['mode']}: not finite: {h}")
+    check(trainer.state.step == 2 * steps, f"step {trainer.state.step}")
+    saved = sorted(os.listdir(ckpt_dir))
+    check(saved == ["best_3DAcc.pth", "best_3DIOU.pth", "epoch_0000.pth",
+                    "epoch_0001.pth"], f"checkpoints: {saved}")
+    want_lr = trainer.state.optimizer.param_groups[0]["lr"]
 
-        resumed = train_cli.main(common + ["--epochs", "3", "--resume"])
-        torch.cuda.synchronize()
-        check(resumed.resumed is not None and resumed.resumed["epoch"] == 1
-              and resumed.resumed["step"] == 2 * steps
-              and resumed.resumed["lr"] == want_lr,
-              f"resume restored {resumed.resumed}, expected epoch 1, step "
-              f"{2 * steps}, lr {want_lr}")
-        check([h["epoch"] for h in resumed.history] == [2, 2]
-              and resumed.state.step == 3 * steps,
-              f"the resumed run ran {resumed.history}")
-        check(all(np.isfinite(v) for h in resumed.history
-                  for v in h["loss"].values()), "resumed run: loss not finite")
-        rolling = sorted(f for f in os.listdir(ckpt_dir)
-                         if f.startswith("epoch_"))
-        check(rolling == ["epoch_0001.pth", "epoch_0002.pth"],
-              f"rolling checkpoints after resume: {rolling}")
-        last_val = resumed.history[-1]
-        cfg = resumed.cfg
+    resumed = train_cli.main(common + ["--epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    check(resumed.resumed is not None and resumed.resumed["epoch"] == 1
+          and resumed.resumed["step"] == 2 * steps
+          and resumed.resumed["lr"] == want_lr,
+          f"resume restored {resumed.resumed}, expected epoch 1, step "
+          f"{2 * steps}, lr {want_lr}")
+    check([h["epoch"] for h in resumed.history] == [2, 2]
+          and resumed.state.step == 3 * steps,
+          f"the resumed run ran {resumed.history}")
+    check(all(np.isfinite(v) for h in resumed.history
+              for v in h["loss"].values()), "resumed run: loss not finite")
+    rolling = sorted(f for f in os.listdir(ckpt_dir)
+                     if f.startswith("epoch_"))
+    check(rolling == ["epoch_0001.pth", "epoch_0002.pth"],
+          f"rolling checkpoints after resume: {rolling}")
+    last_val = resumed.history[-1]
+    cfg = resumed.cfg
 
-        summary = os.path.join(tmp, "summary.json")
-        out = evaluate_cli.main([
-            "--preset", "kitti", "--synthetic", str(max(RUN_SCANS // 4, 1)),
-            "--synthetic_points", str(N_POINTS), "--synthetic_seed",
-            str(cfg.train.seed + 1), "--batch_size", str(TRAIN_BATCH),
-            "--run_dir", run_dir, "--ckpt", "latest", "--knn",
-            "--summary_json", summary, "--device", dev.type])
-        with open(summary) as f:
-            written = json.load(f)
-        check(written["mIoU_3D"] == out["mIoU_3D"], "summary_json differs")
-        conf = np.asarray(out["confusion"], dtype=np.int64)
-        check(conf.sum() > 0 and np.array_equal(conf, last_val["confusion"]),
-              f"evaluate's confusion matrix differs from the Trainer's last "
-              f"validation's in {int((conf != last_val['confusion']).sum())} "
-              f"cells (mIoU {out['mIoU_3D']} against {last_val['3DIOU']})")
-        launches = {"proto_tail": k3.proto_tail.launches,
-                    "knn_vote": k2.knn_vote.launches}
+    summary = os.path.join(tmp, "summary.json")
+    out = evaluate_cli.main([
+        "--preset", "kitti", "--synthetic", str(max(RUN_SCANS // 4, 1)),
+        "--synthetic_points", str(N_POINTS), "--synthetic_seed",
+        str(cfg.train.seed + 1), "--batch_size", str(TRAIN_BATCH),
+        "--run_dir", run_dir, "--ckpt", "latest", "--knn",
+        "--summary_json", summary, "--device", dev.type])
+    with open(summary) as f:
+        written = json.load(f)
+    check(written["mIoU_3D"] == out["mIoU_3D"], "summary_json differs")
+    conf = np.asarray(out["confusion"], dtype=np.int64)
+    check(conf.sum() > 0 and np.array_equal(conf, last_val["confusion"]),
+          f"evaluate's confusion matrix differs from the Trainer's last "
+          f"validation's in {int((conf != last_val['confusion']).sum())} "
+          f"cells (mIoU {out['mIoU_3D']} against {last_val['3DIOU']})")
+    launches = {"proto_tail": k3.proto_tail.launches,
+                "knn_vote": k2.knn_vote.launches}
     print(f"run loop: train 2 epochs x {steps} steps (warmup, contrast) + "
           f"resume 1 epoch + evaluate; launches {launches}; losses "
           f"{[round(h['loss'].get('total', 0.0), 4) for h in hist + resumed.history if h['mode'] == 'Train']}; "
@@ -799,6 +819,282 @@ def run_loop_timings(cfg, dev, bare, tag):
               f"{restore_s:.3f} s, {size_mb:.1f} MB")
 
 
+FAMILIES = {                # name -> model overrides on the kitti preset
+    "rangenet21": dict(net_type="rangenet", layers=21),
+    "squeezesegv3_21": dict(net_type="squeezesegv3", layers=21),
+    "salsanext_s2d_w": dict(net_type="salsanext", stem="s2d_w"),
+}
+DEEP_FAMILIES = {           # served once, uncalibrated
+    "rangenet53": dict(net_type="rangenet", layers=53),
+    "squeezesegv3_53": dict(net_type="squeezesegv3", layers=53),
+}
+FAMILY_REQUESTS = 2
+FAMILY_REPS = 5
+FAMILY_CONTRAST_STEPS = 2
+
+
+def family_cfg(cfg, name):
+    over = {**FAMILIES, **DEEP_FAMILIES}[name]
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **over))
+
+
+def serve_family(cfg, dev, host, name, k1, k2, tag):
+    """Phase 10, one family: BatchNorm calibrated, FAMILY_REQUESTS batches
+    through make_inference_fn, one scan CPU vs card in float32."""
+    import torch
+
+    from coarse3d_tpu_torch.eval.inference import make_inference_fn
+    from coarse3d_tpu_torch.train.setup import build_model
+
+    fcfg = family_cfg(cfg, name)
+    n_classes = fcfg.data.n_classes
+    state = calibrated_state(fcfg, host[0][0][:2], host[0][1][:2])
+    model = build_model(fcfg, device=dev, seed=0)
+    model.load_state_dict(state)
+    infer = make_inference_fn(model, fcfg, use_knn=True)
+    points = torch.from_numpy(host[0][0]).to(dev)
+    valid = torch.from_numpy(host[0][1]).to(dev)
+    infer(points, valid)                        # warm-up, not counted
+    torch.cuda.synchronize()
+
+    k1.project_scatter.launches = 0
+    k2.knn_vote.launches = 0
+    labels = [infer(torch.from_numpy(p), torch.from_numpy(v))
+              for p, v in host[1:FAMILY_REQUESTS + 1]]
+    torch.cuda.synchronize()
+    launches = {"proj_scatter_min": k1.project_scatter.launches,
+                "knn_vote": k2.knn_vote.launches}
+    check(launches == {"proj_scatter_min": FAMILY_REQUESTS,
+                       "knn_vote": FAMILY_REQUESTS},
+          f"{name}: {FAMILY_REQUESTS} served batches launched {launches}")
+    for lab in labels:
+        check(lab.shape == (BATCH, fcfg.data.max_points)
+              and lab.dtype == torch.int32, f"{name}: labels {lab.shape}")
+        check(int(lab.min()) >= 1 and int(lab.max()) <= n_classes - 1,
+              f"{name}: labels outside [1, {n_classes - 1}]")
+    seen = torch.unique(labels[0]).tolist()
+    check(len(seen) > 1, f"{name}: the served label map is constant")
+
+    cfg32 = dataclasses.replace(fcfg, model=dataclasses.replace(
+        fcfg.model, compute_dtype="float32"))
+    one_p = torch.from_numpy(host[0][0][:1])
+    one_v = torch.from_numpy(host[0][1][:1])
+    out = {}
+    for where in ("cpu", dev):
+        m32 = build_model(cfg32, device=where)
+        m32.load_state_dict(state)
+        out[str(where)] = make_inference_fn(m32, cfg32)(one_p, one_v).cpu()
+        del m32
+    n_valid = int(one_v.sum())
+    agree = float((out["cpu"][0, :n_valid]
+                   == out[str(dev)][0, :n_valid]).float().mean())
+    check(agree >= 0.99, f"{name}: CPU vs card agreement {agree} < 0.99")
+
+    t_batch = time_ms(lambda: infer(points, valid), reps=FAMILY_REPS)
+    torch.cuda.reset_peak_memory_stats()
+    infer(points, valid)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if fcfg.model.net_type == "squeezesegv3":
+        # what one full-resolution SAC block holds at once: the 3x3 unfold
+        # of its 32 channels, the attention map and their product
+        sac_gb = BATCH * 9 * 32 * fcfg.sensor.proj_h * fcfg.sensor.proj_w * 2
+        print(f"{name}: one full-resolution SAC block holds 3 maps of "
+              f"({BATCH}, 288, {fcfg.sensor.proj_h}, {fcfg.sensor.proj_w}) "
+              f"bf16, {sac_gb / 1e9:.2f} GB each, {3 * sac_gb / 1e9:.2f} GB "
+              f"reckoned; measured peak {peak_gb:.2f} GB")
+    print(f"timing {tag} family {name} serving B={BATCH}: {t_batch:.3f} "
+          f"ms/batch, {BATCH * 1e3 / t_batch:.2f} scans/s, peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}; classes seen {seen}; CPU "
+          f"vs card float32 agreement {agree:.6f} on {n_valid} points")
+    return launches, model
+
+
+def serve_deep_family(cfg, dev, host, name, k1, k2, tag):
+    """Phase 10, the 53-layer depths: one batch, seeded weights as built."""
+    import torch
+
+    from coarse3d_tpu_torch.eval.inference import make_inference_fn
+    from coarse3d_tpu_torch.train.setup import build_model
+
+    fcfg = family_cfg(cfg, name)
+    infer = make_inference_fn(build_model(fcfg, device=dev, seed=0), fcfg)
+    points, valid = (torch.from_numpy(a).to(dev) for a in host[1])
+    infer(points, valid)                        # warm-up
+    before = (k1.project_scatter.launches, k2.knn_vote.launches)
+    torch.cuda.reset_peak_memory_stats()
+    t_batch = time_ms(lambda: infer(points, valid), reps=1)
+    lab = infer(points, valid)
+    torch.cuda.synchronize()
+    check(k1.project_scatter.launches > before[0]
+          and k2.knn_vote.launches > before[1], f"{name}: no kernel launch")
+    check(int(lab.min()) >= 0 and int(lab.max()) <= fcfg.data.n_classes - 1,
+          f"{name}: labels out of range")
+    print(f"timing {tag} family {name} serving B={BATCH} (one batch, "
+          f"uncalibrated weights): {t_batch:.3f} ms/batch, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def train_family(cfg, dev, batch, n_valid, name, k3, tag):
+    """Phase 11, one family: a warmup step and FAMILY_CONTRAST_STEPS
+    contrast steps at B=TRAIN_BATCH, then their times."""
+    import torch
+
+    from coarse3d_tpu_torch.train.setup import build_alpha, build_state
+    from coarse3d_tpu_torch.train.step import make_train_step
+
+    fcfg = family_cfg(cfg, name)
+    state = build_state(fcfg, device=dev, seed=0, steps_per_epoch=100)
+    alpha = build_alpha(fcfg)
+    warm = make_train_step(fcfg, alpha, with_contrast=False)
+    contrast = make_train_step(fcfg, alpha, with_contrast=True)
+    k3.proto_tail.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, m = warm(state, batch)
+    metrics = [m]
+    for _ in range(FAMILY_CONTRAST_STEPS):
+        state, m = contrast(state, batch, SELECT_RATIO)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = k3.proto_tail.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == FAMILY_CONTRAST_STEPS,
+          f"{name}: K3 launched {launches} times in "
+          f"{FAMILY_CONTRAST_STEPS} contrast steps")
+    for i, m in enumerate(metrics):
+        losses = {k: float(v) for k, v in m["losses"].items()}
+        print(f"{name} step {i}: losses {losses}")
+        check(all(np.isfinite(v) for v in losses.values()),
+              f"{name} step {i}: a loss is not finite: {losses}")
+        check(int(m["confusion"].sum()) == n_valid,
+              f"{name} step {i}: confusion count")
+    norm_err = float((state.prototypes.norm(dim=-1) - 1).abs().max())
+    check(norm_err <= 1e-5, f"{name}: memory rows off unit norm by "
+          f"{norm_err}")
+    t_con = time_ms(lambda: contrast(state, batch, SELECT_RATIO),
+                    reps=FAMILY_REPS)
+    t_warm = time_ms(lambda: warm(state, batch), reps=FAMILY_REPS)
+    print(f"timing {tag} family {name} training B={TRAIN_BATCH}: contrast "
+          f"step {t_con:.3f} ms, warmup step {t_warm:.3f} ms, peak memory "
+          f"{peak_gb:.2f} GB (1 warmup + {FAMILY_CONTRAST_STEPS} contrast "
+          f"steps); K3 launches {launches}; memory unit norm within "
+          f"{norm_err:.1e}")
+    return launches, state
+
+
+def crf_phase(cfg, dev, host, served_model, state, batch, n_valid, run_tmp,
+              k2, tag):
+    """Phase 12: the CRF and the border mask on the card against the CPU,
+    the CRF eval step, and train_crf + evaluate --crf through their CLIs."""
+    import torch
+
+    from coarse3d_tpu_torch.ops.projection import (
+        build_range_features,
+        normalize_features,
+        range_project_batch,
+    )
+    from coarse3d_tpu_torch.postproc import border_mask, crf_refine
+    from coarse3d_tpu_torch.postproc.crf import init_compat_kernel
+    from coarse3d_tpu_torch.tools import evaluate as evaluate_cli
+    from coarse3d_tpu_torch.tools import train_crf as train_crf_cli
+    from coarse3d_tpu_torch.train.step import make_eval_step
+
+    n_classes = cfg.data.n_classes
+    with torch.inference_mode():
+        points = torch.from_numpy(host[1][0]).to(dev)
+        valid = torch.from_numpy(host[1][1]).to(dev)
+        proj = range_project_batch(points, valid, cfg.sensor)
+        mask = proj["proj_idx"] >= 0
+        x = normalize_features(build_range_features(
+            proj["proj_points"], proj["proj_range"]), mask, cfg.sensor)
+        probs = served_model(x.permute(0, 3, 1, 2).contiguous())[
+            "probs"].permute(0, 2, 3, 1).contiguous()
+        xyz = proj["proj_points"][..., :3].contiguous()
+        kernel = init_compat_kernel(n_classes, 0.1)
+        got = crf_refine(xyz, probs, mask, kernel.to(dev))
+        t0 = time.perf_counter()
+        want = crf_refine(xyz.cpu(), probs.cpu(), mask.cpu(), kernel)
+        cpu_s = time.perf_counter() - t0
+        err = float((got.cpu() - want).abs().max())
+        moved = float((got.argmax(-1) != probs.argmax(-1)).float().mean())
+        check(bool(torch.isfinite(got).all()), "crf_refine: NaN/inf")
+        check(err <= 1e-5, f"crf_refine card vs CPU: {err} > 1e-5")
+        t_crf = time_ms(lambda: crf_refine(xyz, probs, mask, kernel.to(dev)),
+                        reps=TRAIN_REPS)
+        labels = probs.argmax(-1).to(torch.int32)
+        # a random network's map is salt and pepper, all border; the same
+        # map in 8x32 blocks has interiors too
+        blocky = labels[:, ::8, ::32].repeat_interleave(
+            8, dim=1).repeat_interleave(32, dim=2)
+        for name, lab in (("served", labels), ("blocky", blocky)):
+            for kind in ("cross", "square"):
+                for size in (1, 3):
+                    b_card = border_mask(lab, n_classes, size, kind)
+                    b_cpu = border_mask(lab.cpu(), n_classes, size, kind)
+                    check(torch.equal(b_card.cpu(), b_cpu),
+                          f"border_mask {name} {kind} {size}: card differs "
+                          "from CPU")
+        border_share = [float(border_mask(lab, n_classes).float().mean())
+                        for lab in (labels, blocky)]
+        check(0 < border_share[1] < 1, f"blocky border share {border_share}")
+    print(f"timing {tag} CRF B={BATCH} {tuple(probs.shape)}: crf_refine "
+          f"{t_crf:.3f} ms (3 iterations, 3x5 window); card vs CPU float32 "
+          f"max abs err {err:.3e} (CPU run {cpu_s:.1f} s); it moved the "
+          f"argmax on {moved:.4f} of pixels; border_mask cross/square x "
+          f"1/3 == CPU exactly on the served map ({border_share[0]:.4f} of "
+          f"pixels on a border) and on its 8x32-block version "
+          f"({border_share[1]:.4f})")
+
+    steps = {"plain": make_eval_step(cfg, use_knn=True),
+             "crf": make_eval_step(cfg, use_knn=True, use_crf=True)}
+    k2.knn_vote.launches = 0
+    ev = steps["crf"](state, batch)
+    torch.cuda.synchronize()
+    launches = k2.knn_vote.launches
+    check(launches == 1, f"the CRF eval step launched K2 {launches} times")
+    check(int(ev["confusion"].sum()) == n_valid,
+          f"CRF eval step: confusion sums to {int(ev['confusion'].sum())}, "
+          f"not {n_valid} valid points")
+    t_eval = {k: time_ms(lambda: fn(state, batch), reps=TRAIN_REPS)
+              for k, fn in steps.items()}
+    print(f"timing {tag} eval step B={TRAIN_BATCH} (KNN): "
+          f"{t_eval['plain']:.3f} ms without the CRF, "
+          f"{t_eval['crf']:.3f} ms with it; confusion counts {n_valid} "
+          "points")
+
+    run_dir = os.path.join(run_tmp, "run")
+    out = os.path.join(run_tmp, "crf_kernel.npz")
+    data = ["--preset", "kitti", "--synthetic", str(TRAIN_BATCH),
+            "--synthetic_points", str(N_POINTS), "--batch_size",
+            str(TRAIN_BATCH), "--run_dir", run_dir, "--ckpt", "latest",
+            "--device", dev.type]
+    t0 = time.perf_counter()
+    fit = train_crf_cli.main(data + [
+        "--synthetic_task", "bands", "--weak", "0.001", "--epochs", "1",
+        "--out", out])
+    fit_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in fit["history"])
+          and bool(np.isfinite(fit["kernel"]).all()), f"train_crf: {fit}")
+    init = init_compat_kernel(n_classes, 0.1).numpy()
+    drift = float(np.abs(fit["kernel"] - init).max())
+    check(drift > 0, "train_crf left the kernel at its init")
+    k2.knn_vote.launches = 0
+    res = evaluate_cli.main(data + ["--knn", "--crf", "--crf_kernel", out])
+    torch.cuda.synchronize()
+    cli_launches = k2.knn_vote.launches
+    total = int(np.sum(res["confusion"]))
+    check(res["crf"] and res["knn"] and cli_launches >= 1
+          and total == TRAIN_BATCH * N_POINTS,
+          f"evaluate --crf --crf_kernel: {res['mIoU_3D']}, {total} points, "
+          f"K2 launches {cli_launches}")
+    print(f"CRF CLIs: train_crf 1 epoch on the run dir in {fit_s:.1f} s, "
+          f"weak-CE {fit['history']}, kernel moved by {drift:.3e}; evaluate "
+          f"--knn --crf --crf_kernel: mIoU {res['mIoU_3D']}, {total} points,"
+          f" K2 launches {cli_launches}")
+    return launches + cli_launches
+
+
 def main() -> int:
     import torch
 
@@ -825,6 +1121,7 @@ def main() -> int:
     )
     from coarse3d_tpu_torch.tools import infer as infer_cli
     from coarse3d_tpu_torch.train.setup import build_model
+    from coarse3d_tpu_torch.train.step import batch_to_device
 
     card = gpu_line()
     print(card)
@@ -1071,13 +1368,43 @@ def main() -> int:
     phase_done("7 training CPU vs card")
     bare = train_timings(cfg, dev, state, tbatch, tag)
     phase_done("8 training timings")
-    del state, tbatch, thost
+    del state, tbatch
 
-    # -- 9. the run loop -------------------------------------------------------
-    loop_launches = run_loop_phase(dev, k2, k3)
-    phase_done("9 run loop (CLIs)")
-    run_loop_timings(cfg, dev, bare, tag)
-    phase_done("9b run loop timings")
+    with tempfile.TemporaryDirectory() as run_tmp:
+        # -- 9. the run loop ------------------------------------------------
+        loop_launches = run_loop_phase(dev, k2, k3, run_tmp)
+        phase_done("9 run loop (CLIs)")
+        run_loop_timings(cfg, dev, bare, tag)
+        phase_done("9b run loop timings")
+
+        # -- 10. the other families, serving --------------------------------
+        family_serving = {"proj_scatter_min": 0, "knn_vote": 0}
+        for name in FAMILIES:
+            got, served_model = serve_family(cfg, dev, host, name, k1, k2,
+                                             tag)
+            for key, n in got.items():
+                family_serving[key] += n
+        for name in DEEP_FAMILIES:
+            serve_deep_family(cfg, dev, host, name, k1, k2, tag)
+        phase_done("10 families, serving")
+
+        # -- 11. the other families, training -------------------------------
+        tbatch = batch_to_device(thost, dev)
+        n_valid = int(thost["point_valid"].sum())
+        family_training = 0
+        for name in ("rangenet21", "squeezesegv3_21"):
+            got, fstate = train_family(cfg, dev, tbatch, n_valid, name, k3,
+                                       tag)
+            family_training += got
+        phase_done("11 families, training")
+
+        # -- 12. the CRF and the border mask --------------------------------
+        # the served s2d_w SalsaNext gives the softmax, the trained
+        # SqueezeSegV3 state runs the eval step
+        crf_launches = crf_phase(cfg, dev, host, served_model, fstate, tbatch,
+                                 n_valid, run_tmp, k2, tag)
+        phase_done("12 CRF and border mask")
+        del served_model, fstate, tbatch
     print(f"timing {tag} wall seconds per phase: {phase_s}")
 
     kernels = [
@@ -1087,7 +1414,11 @@ def main() -> int:
          # the headline fields are those of the entry the served path
          # launches (project_scatter); scatter_min's own stand beside them
          "entry": "project_scatter",
-         "launches": launches["proj_scatter_min"], "max_abs_err": k1r["err"],
+         "launches": launches["proj_scatter_min"],
+         "launches_by_path": {
+             "serving": launches["proj_scatter_min"],
+             "families_serving": family_serving["proj_scatter_min"]},
+         "max_abs_err": k1r["err"],
          "ms": k1r["fused_ms"], "plain_ms": k1r["fused_plain"],
          "bound_ms": k1r["fused_bound"], "bound_by": "bytes",
          "library_ms": None,
@@ -1100,7 +1431,9 @@ def main() -> int:
          "launches": launches["knn_vote"],
          "launches_by_path": {"serving": launches["knn_vote"],
                               "training": train_launches["knn_vote"],
-                              "run_loop": loop_launches["knn_vote"]},
+                              "run_loop": loop_launches["knn_vote"],
+                              "families_serving": family_serving["knn_vote"],
+                              "crf_eval": crf_launches},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None,
@@ -1110,7 +1443,8 @@ def main() -> int:
          "replaces": "coarse3d_tpu/ops/pallas/proto_update.py:40",
          "launches": train_launches["proto_tail"],
          "launches_by_path": {"training": train_launches["proto_tail"],
-                              "run_loop": loop_launches["proto_tail"]},
+                              "run_loop": loop_launches["proto_tail"],
+                              "families_training": family_training},
          "max_abs_err": max(k3_dense["err"], k3_train["err"]),
          "ms": k3_dense["ms"], "plain_ms": k3_dense["plain"],
          "bound_ms": k3_dense["bound"], "bound_by": k3_dense["by"],

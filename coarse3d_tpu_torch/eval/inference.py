@@ -1,8 +1,8 @@
 """Device inference: projection -> forward -> KNN -> per-point labels.
 
 Port of the JAX package's ``eval/inference.py:make_inference_fn``, the
-serving path (projection, 5-channel features and normalisation, SalsaNext,
-argmax over logits, KNN range vote). On a CUDA model the projection's
+serving path (projection, 5-channel features and normalisation, the model
+``build_model`` gave, argmax over logits, KNN range vote). On a CUDA model the projection's
 scatter-min and the KNN vote run as the hand-written kernels K1 and K2; on
 a CPU model they run their plain twins. There is no knob: the device picks.
 """

@@ -1,9 +1,12 @@
-"""Shared conv building blocks of SalsaNext (PyTorch, NCHW).
+"""Shared conv building blocks (PyTorch, NCHW).
 
-Port of the JAX package's ``models/blocks.py`` (``ConvActBN``,
-``ResContextBlock``, ``ResBlock``, ``UpBlock``, ``ProjectionHead``,
-``pixel_shuffle``). Behavioral model: the SalsaNext block zoo of the
-reference's salsanext_proto.py — ResContextBlock (:38-65), ResBlock
+Port of the JAX package's ``models/blocks.py``: SalsaNext's blocks
+(``ConvActBN``, ``ResContextBlock``, ``ResBlock``, ``UpBlock``,
+``ProjectionHead``, ``pixel_shuffle``) and the extras the reference defines
+beside them (``SEBlock``, ``ClassifierHead``, ``ConvUpSample``,
+``ProjectionHeadV2`` / ``V3`` / ``V4``, ``CSAttention``). Behavioral model:
+the SalsaNext block zoo of the reference's salsanext_proto.py —
+ResContextBlock (:38-65), ResBlock
 (:68-148), UpBlock (:151-212) — with the reference's attribute names
 (``conv1``, ``bn1``, ...), so a reference state dict loads with
 ``load_state_dict(strict=True)``.
@@ -24,13 +27,23 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from coarse3d_tpu_torch.ops.resize import resize_bilinear
+
 LEAKY_SLOPE = 0.01
 
 
-def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
-    """(B, C*r*r, H, W) -> (B, C, H*r, W*r), torch PixelShuffle channel order
-    (the JAX ``pixel_shuffle`` rearranges to the same order in NHWC)."""
-    return F.pixel_shuffle(x, r)
+def pixel_shuffle(x: torch.Tensor, r: int = 2, rw: int | None = None
+                  ) -> torch.Tensor:
+    """(B, C*r*rw, H, W) -> (B, C, H*r, W*rw), torch PixelShuffle channel
+    order (the JAX ``pixel_shuffle`` rearranges to the same order in NHWC).
+    ``rw`` defaults to ``r`` (square shuffle); a rectangular (r, rw) serves
+    the width-only s2d stem (``models/salsanext.py``)."""
+    rw = r if rw is None else rw
+    if rw == r:
+        return F.pixel_shuffle(x, r)
+    b, c, h, w = x.shape
+    x = x.view(b, c // (r * rw), r, rw, h, w)
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(b, c // (r * rw), h * r, w * rw)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -96,8 +109,9 @@ class Dropout2d(nn.Module):
         return f"p={self.p}"
 
 
-def _bn(features: int) -> BatchNorm2d:
-    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
+def batch_norm(features: int, momentum: float = 0.1) -> BatchNorm2d:
+    """``momentum`` is PyTorch's (weight of the new value): 1 - Flax's."""
+    return BatchNorm2d(features, eps=1e-5, momentum=momentum)
 
 
 def conv_act_bn(x: torch.Tensor, conv: nn.Conv2d, bn: BatchNorm2d
@@ -124,9 +138,9 @@ class ResContextBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_filters, out_filters, 1)
         self.conv2 = _conv3(out_filters, out_filters)
-        self.bn1 = _bn(out_filters)
+        self.bn1 = batch_norm(out_filters)
         self.conv3 = _conv3(out_filters, out_filters, dilation=2)
-        self.bn2 = _bn(out_filters)
+        self.bn2 = batch_norm(out_filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = F.leaky_relu(self.conv1(x), LEAKY_SLOPE)
@@ -150,13 +164,13 @@ class ResBlock(nn.Module):
         self.drop_out = drop_out
         self.conv1 = nn.Conv2d(in_filters, out_filters, 1)
         self.conv2 = _conv3(in_filters, out_filters)
-        self.bn1 = _bn(out_filters)
+        self.bn1 = batch_norm(out_filters)
         self.conv3 = _conv3(out_filters, out_filters, dilation=2)
-        self.bn2 = _bn(out_filters)
+        self.bn2 = batch_norm(out_filters)
         self.conv4 = _conv2_dil2(out_filters, out_filters)
-        self.bn3 = _bn(out_filters)
+        self.bn3 = batch_norm(out_filters)
         self.conv5 = nn.Conv2d(3 * out_filters, out_filters, 1)
-        self.bn4 = _bn(out_filters)
+        self.bn4 = batch_norm(out_filters)
         self.dropout = Dropout2d(dropout_rate)
 
     def forward(self, x: torch.Tensor,
@@ -189,13 +203,13 @@ class UpBlock(nn.Module):
         self.drop_out = drop_out
         cin = in_filters // 4 + 2 * out_filters
         self.conv1 = _conv3(cin, out_filters)
-        self.bn1 = _bn(out_filters)
+        self.bn1 = batch_norm(out_filters)
         self.conv2 = _conv3(out_filters, out_filters, dilation=2)
-        self.bn2 = _bn(out_filters)
+        self.bn2 = batch_norm(out_filters)
         self.conv3 = _conv2_dil2(out_filters, out_filters)
-        self.bn3 = _bn(out_filters)
+        self.bn3 = batch_norm(out_filters)
         self.conv4 = nn.Conv2d(3 * out_filters, out_filters, 1)
-        self.bn4 = _bn(out_filters)
+        self.bn4 = batch_norm(out_filters)
         self.dropout1 = Dropout2d(dropout_rate)
         self.dropout2 = Dropout2d(dropout_rate)
         self.dropout3 = Dropout2d(dropout_rate)
@@ -227,10 +241,134 @@ class ProjectionHead(nn.Module):
         super().__init__()
         self.proj = nn.Sequential(
             nn.Conv2d(in_channels, in_channels, 1),
-            _bn(in_channels),
+            batch_norm(in_channels),
             nn.LeakyReLU(LEAKY_SLOPE),
             nn.Conv2d(in_channels, proj_dim, 1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x.float())
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation (reference salsanext_proto.py:234-250; defined
+    but unused by the shipped models)."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = nn.Linear(channels, channels // reduction)
+        self.fc2 = nn.Linear(channels // reduction, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.sigmoid(self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3))))))
+        return x * s[:, :, None, None]
+
+
+class ClassifierHead(nn.Module):
+    """Global-pool + linear classifier for ImageNet encoder pretraining
+    (reference FC, salsanext_proto.py:216-231), in float32."""
+
+    def __init__(self, in_channels: int, n_outputs: int = 1000):
+        super().__init__()
+        self.fc = nn.Linear(in_channels, n_outputs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x.float().mean(dim=(2, 3)))
+
+
+class ConvUpSample(nn.Module):
+    """Bilinear-upsample + conv deconv substitute (reference
+    layers/modules.py:5-28; unused by the shipped models)."""
+
+    def __init__(self, in_channels: int, features: int, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+        self.conv = _conv3(in_channels, features)
+        self.bn = batch_norm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = resize_bilinear(x, x.shape[2] * self.scale,
+                            x.shape[3] * self.scale)
+        return conv_act_bn(x, self.conv, self.bn)
+
+
+class _ProjectionTwoConvs(nn.Module):
+    """1x1 conv -> activation -> 1x1 conv in float32, as ``proj.0/1/2``."""
+
+    def __init__(self, in_channels: int, proj_dim: int, act: nn.Module):
+        super().__init__()
+        self.proj = nn.Sequential(
+            nn.Conv2d(in_channels, in_channels, 1), act,
+            nn.Conv2d(in_channels, proj_dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x.float())
+
+
+class ProjectionHeadV2(_ProjectionTwoConvs):
+    """Reference ProjectionV2 (projector.py:31-44, never instantiated
+    there): 1x1 conv -> ReLU -> 1x1 conv."""
+
+    def __init__(self, in_channels: int, proj_dim: int):
+        super().__init__(in_channels, proj_dim, nn.ReLU())
+
+
+class ProjectionHeadV3(_ProjectionTwoConvs):
+    """Reference ProjectionV3 (projector.py:48-60): V2 with LeakyReLU."""
+
+    def __init__(self, in_channels: int, proj_dim: int):
+        super().__init__(in_channels, proj_dim, nn.LeakyReLU(LEAKY_SLOPE))
+
+
+class ProjectionHeadV4(nn.Module):
+    """Reference ProjectionV4 (projector.py:64-84): one 1x1 conv, then a
+    SCALAR global l2 norm: ``torch.norm(x, p=2)`` with no dim reduces over
+    everything, so the module returns a single number, as the JAX one
+    does."""
+
+    def __init__(self, in_channels: int, proj_dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(in_channels, proj_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(torch.sum(torch.square(self.proj(x.float()))))
+
+
+def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Zero-pad H and W as XLA's "SAME" does: out = ceil(in / stride), the
+    odd pad cell on the high side (at 3x3 stride 2 on an even size: (0, 1),
+    where PyTorch's ``padding=1`` gives (1, 1))."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):           # F.pad: last dim first
+        total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class CSAttention(nn.Module):
+    """Channel-wise spatial attention (reference layers/modules.py:30-56,
+    unused by the shipped models): a 3x3-conv-ReLU-3x3-conv value branch
+    gated elementwise by a parallel sigmoid attention branch. The strided
+    convs pad as the JAX ones do ("SAME")."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 scale: float = 1.0):
+        super().__init__()
+        mid = int(in_channels * scale)
+        self.stride = stride
+
+        def branch():
+            return nn.ModuleList([
+                nn.Conv2d(in_channels, mid, 3, stride=stride),
+                nn.Conv2d(mid, out_channels, 3, padding=1)])
+
+        self.value = branch()
+        self.attention = branch()
+
+    def _branch(self, convs, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(convs[0](_same_pad(x, 3, self.stride)))
+        return convs[1](h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (F.relu(self._branch(self.value, x))
+                * torch.sigmoid(self._branch(self.attention, x)))

@@ -1,7 +1,7 @@
 """SalsaNext encoder-decoder with contrastive projection head (PyTorch).
 
-Port of the JAX package's ``models/salsanext.py:SalsaNext`` (parity stem).
-Behavioral model: the reference's salsanext_proto.py:253-492 (minus its
+Port of the JAX package's ``models/salsanext.py:SalsaNext``. Behavioral
+model: the reference's salsanext_proto.py:253-492 (minus its
 leftover debug block that overwrites inputs with torch.randn): 3
 ResContext blocks, 5 ResBlocks (4 pooled), 4 PixelShuffle UpBlocks with
 pre-pool skips, 1x1 class head -> softmax; for contrastive training the 4
@@ -9,6 +9,15 @@ pre-pool skip maps (22 * base channels) are bilinear-resized to (H/2, W/2),
 concatenated, projected to an L2-normalized embedding, and upsampled back to
 (H, W). SemanticPOSS inputs are zero-padded by ``pad_hw`` in H and W so
 every stage divides by 16.
+
+``s2d_factors`` = (i, j) is the space-to-depth stem (not compatible with
+reference weights): (i, j) pixel blocks stack into channels
+(``"b (h i) (w j) c -> b h w (c i j)"``), the whole network runs at the
+reduced resolution, the head ``cls_head_s2d`` emits i*j*n_classes channels
+that a rectangular pixel shuffle spreads back, and the embedding is resized
+to the full size. (1, 1) is the parity stem, (2, 2) ``s2d``, (1, 2) the
+width-only ``s2d_w``. ``classification=True`` is the ImageNet-pretrain
+mode: encoder only, then the ``fc`` head -> {"class_logits"}.
 
 Layout and types: NCHW in and out (the JAX model is NHWC). The backbone
 runs under autocast in ``compute_dtype`` (bf16 for the ``kitti`` preset,
@@ -23,10 +32,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from coarse3d_tpu_torch.models.blocks import (
+    ClassifierHead,
     ProjectionHead,
     ResBlock,
     ResContextBlock,
     UpBlock,
+    pixel_shuffle,
 )
 from coarse3d_tpu_torch.ops.resize import resize_bilinear
 
@@ -41,13 +52,17 @@ class SalsaNext(nn.Module):
                  base_channels: int = 32, proj_dim: int = 256,
                  dropout_rate: float = 0.2,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 pad_hw: int = 0):
+                 pad_hw: int = 0, classification: bool = False,
+                 s2d_factors: tuple[int, int] = (1, 1)):
         super().__init__()
         bc = base_channels
         drop = dropout_rate
+        fi, fj = s2d_factors
         self.compute_dtype = compute_dtype
         self.pad_hw = pad_hw
-        self.downCntx = ResContextBlock(in_channels, bc)
+        self.classification = classification
+        self.s2d_factors = (fi, fj)
+        self.downCntx = ResContextBlock(in_channels * fi * fj, bc)
         self.downCntx2 = ResContextBlock(bc, bc)
         self.downCntx3 = ResContextBlock(bc, bc)
         self.resBlock1 = ResBlock(bc, 2 * bc, drop, pooling=True,
@@ -56,11 +71,18 @@ class SalsaNext(nn.Module):
         self.resBlock3 = ResBlock(4 * bc, 8 * bc, drop, pooling=True)
         self.resBlock4 = ResBlock(8 * bc, 8 * bc, drop, pooling=True)
         self.resBlock5 = ResBlock(8 * bc, 8 * bc, drop, pooling=False)
+        if classification:
+            self.fc = ClassifierHead(8 * bc)
+            return
         self.upBlock1 = UpBlock(8 * bc, 4 * bc, drop)
         self.upBlock2 = UpBlock(4 * bc, 4 * bc, drop)
         self.upBlock3 = UpBlock(4 * bc, 2 * bc, drop)
         self.upBlock4 = UpBlock(2 * bc, bc, drop, drop_out=False)
-        self.cls_head = nn.Conv2d(bc, n_classes, 1)
+        if fi * fj > 1:
+            # fi x fj logits per coarse pixel, unshuffled to full resolution
+            self.cls_head_s2d = nn.Conv2d(bc, fi * fj * n_classes, 1)
+        else:
+            self.cls_head = nn.Conv2d(bc, n_classes, 1)
         self.projector = ProjectionHead(22 * bc, proj_dim)
 
     def forward(self, x: torch.Tensor, return_feat: bool = False,
@@ -71,11 +93,22 @@ class SalsaNext(nn.Module):
         dropout rate is above 0).
 
         Returns {"logits", "probs"} (B, n_classes, H, W) float32, plus
-        "embedding" (B, proj_dim, H, W) when ``return_feat``.
+        "embedding" (B, proj_dim, H, W) when ``return_feat``; in
+        classification mode {"class_logits"} (B, 1000).
         """
         h0, w0 = x.shape[2], x.shape[3]
         if self.pad_hw:
             x = F.pad(x, (0, self.pad_hw, 0, self.pad_hw))
+        fi, fj = self.s2d_factors
+        if fi * fj > 1:
+            if x.shape[2] % fi or x.shape[3] % fj:
+                raise ValueError(f"H, W must divide the stem's {fi}x{fj}, "
+                                 f"got {x.shape[2]}x{x.shape[3]}")
+            # "b c (h i) (w j) -> b (c i j) h w": PixelUnshuffle's order
+            b, c = x.shape[:2]
+            x = x.reshape(b, c, x.shape[2] // fi, fi, x.shape[3] // fj, fj)
+            x = x.permute(0, 1, 3, 5, 2, 4).reshape(
+                b, c * fi * fj, x.shape[2], x.shape[4])
         h, w = x.shape[2], x.shape[3]
         if h % 16 or w % 16:
             raise ValueError(f"H, W must divide 16, got {h}x{w}")
@@ -90,13 +123,19 @@ class SalsaNext(nn.Module):
             d2c, d2b = self.resBlock3(d1c, g)
             d3c, d3b = self.resBlock4(d2c, g)
             d5c = self.resBlock5(d3c, g)
-            u4 = self.upBlock1(d5c, d3b, g)
-            u3 = self.upBlock2(u4, d2b, g)
-            u2 = self.upBlock3(u3, d1b, g)
-            u1 = self.upBlock4(u2, d0b, g)
+            if not self.classification:
+                u4 = self.upBlock1(d5c, d3b, g)
+                u3 = self.upBlock2(u4, d2b, g)
+                u2 = self.upBlock3(u3, d1b, g)
+                u1 = self.upBlock4(u2, d0b, g)
 
         with torch.autocast(dev, enabled=False):
-            logits = self.cls_head(u1.float())
+            if self.classification:
+                return {"class_logits": self.fc(d5c)}
+            if fi * fj > 1:
+                logits = pixel_shuffle(self.cls_head_s2d(u1.float()), fi, fj)
+            else:
+                logits = self.cls_head(u1.float())
             if self.pad_hw:
                 logits = logits[:, :, :h0, :w0]
             out = {"logits": logits, "probs": torch.softmax(logits, dim=1)}
@@ -108,7 +147,8 @@ class SalsaNext(nn.Module):
                 emb = self.projector(mix)
                 emb = emb / torch.clamp_min(
                     torch.linalg.vector_norm(emb, dim=1, keepdim=True), 1e-12)
-                emb = resize_bilinear(emb, h, w)
+                # back to the input resolution where an s2d stem reduced it
+                emb = resize_bilinear(emb, fi * h, fj * w)
                 if self.pad_hw:
                     emb = emb[:, :, :h0, :w0]
                 out["embedding"] = emb

@@ -1,8 +1,8 @@
 """Spherical range-image projection on the device (PyTorch).
 
 Port of the JAX package's ``ops/projection.py`` device path
-(``pixel_coords``, ``range_project_batch``, ``build_range_features``,
-``normalize_features``). Behavioral model: the reference's
+(``pixel_coords``, ``range_project``, ``range_project_batch``,
+``scatter_labels``, ``build_range_features``, ``normalize_features``). Behavioral model: the reference's
 RangeProjection.doProjection (preprocess/projection.py:43-115): depth =
 ||xyz||2, yaw = -atan2(y, x), pitch = asin(z / depth); normalize by FOV,
 floor + clamp to W x H pixel coords; the *nearest* point wins each pixel,
@@ -166,6 +166,31 @@ def range_project_batch(
         "py": py,
         "depth": depth,
     }
+
+
+def range_project(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    sensor: SensorSpec,
+    mask_excludes_point0: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Device range projection of one padded (P, C>=3) cloud: the B=1 case
+    of :func:`range_project_batch` (K1 on a CUDA tensor), every output
+    without the batch dimension."""
+    out = range_project_batch(points[None], valid[None], sensor,
+                              mask_excludes_point0)
+    return {k: v[0] for k, v in out.items()}
+
+
+def scatter_labels(proj_idx: torch.Tensor, point_labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Device variant of :func:`scatter_labels_np` (gather formulation):
+    (H, W) int32 labels through the projection index map, 0 on empty
+    pixels."""
+    hit = proj_idx > -1
+    safe = proj_idx.clamp(0, point_labels.shape[0] - 1).long()
+    return torch.where(hit, point_labels[safe].to(torch.int32), 0).to(
+        torch.int32)
 
 
 def build_range_features(proj_points: torch.Tensor, proj_range: torch.Tensor

@@ -1,18 +1,27 @@
 """Carry weights across: JAX variables or reference .pth -> port state dict.
 
-``state_dict_from_jax`` maps the JAX package's SalsaNext variables
-(``{"params", "batch_stats"}`` as nested dicts of arrays) to a PyTorch state
-dict under the reference's parameter names, which the port's modules use,
-so the result loads with ``load_state_dict(strict=True)``:
+``state_dict_from_jax`` maps the JAX package's model variables
+(``{"params", "batch_stats"}`` as nested dicts of arrays; SalsaNext,
+RangeNet or SqueezeSegV3) to a PyTorch state dict under the reference's
+parameter names, which the port's modules use, so the result loads with
+``load_state_dict(strict=True)``:
 
   conv       kernel (kh, kw, I, O)  -> weight (O, I, kh, kw), bias as is
+  convT      kernel (kh, kw, I, O)  -> weight (I, O, kh, kw), flipped in
+             space: PyTorch's transposed conv convolves where Flax's
+             correlates
+  dense      kernel (I, O)          -> weight (O, I), bias as is
   batchnorm  params scale / bias    -> weight / bias
              batch_stats mean / var -> running_mean / running_var
 
-The entry table is the port's own copy of the JAX package's
-``tools/convert_torch_ckpt.py:salsanext_entries`` (the port never imports
-the JAX package); ``tests/test_torch_salsanext.py`` holds the output equal,
-key for key, to that module's ``export_state_dict``.
+The entry tables are the port's own copies of the JAX package's
+``tools/convert_torch_ckpt.py`` ``salsanext_entries``, ``rangenet_entries``
+and ``squeezesegv3_entries`` (the port never imports the JAX package);
+``tests/test_torch_salsanext.py`` and ``tests/test_torch_families.py`` hold
+the output equal, key for key, to that module's ``export_state_dict``. The
+s2d stems' head (``cls_head_s2d``) and the classification head (``fc``)
+have no reference counterpart; they are carried when the variables hold
+them.
 
 ``train_state_from_jax`` carries a whole JAX training state across: the
 model state dict, the prototype memory, the step and AdamW's moments, for
@@ -31,6 +40,10 @@ import torch
 
 def _conv(t: str, f: str) -> list[tuple[str, str, tuple[str, ...]]]:
     return [("conv", t, tuple(f.split("/")))]
+
+
+def _convT(t: str, f: str) -> list[tuple[str, str, tuple[str, ...]]]:
+    return [("convT", t, tuple(f.split("/")))]
 
 
 def _bn(t: str, f: str) -> list[tuple[str, str, tuple[str, ...]]]:
@@ -63,10 +76,120 @@ def salsanext_entries() -> list[tuple[str, str, tuple[str, ...]]]:
             e += _cab(f"{name}.conv{j + 1}", f"{name}.bn{j + 1}",
                       f"{scope}/ConvActBN_{j}")
     e += _conv("cls_head", "cls_head")
-    e += _conv("projector.proj.0", "projector/Conv_0")
-    e += _bn("projector.proj.1", "projector/BatchNorm_0")
-    e += _conv("projector.proj.3", "projector/Conv_1")
+    e += _projector()
     return e
+
+
+def _projector(prefix: str = "projector"):
+    return (_conv(f"{prefix}.proj.0", f"{prefix}/Conv_0")
+            + _bn(f"{prefix}.proj.1", f"{prefix}/BatchNorm_0")
+            + _conv(f"{prefix}.proj.3", f"{prefix}/Conv_1"))
+
+
+def _basic_block(torch_prefix: str, flax_scope: str):
+    return (_cab(f"{torch_prefix}.conv1", f"{torch_prefix}.bn1",
+                 f"{flax_scope}/ConvBN_0")
+            + _cab(f"{torch_prefix}.conv2", f"{torch_prefix}.bn2",
+                   f"{flax_scope}/ConvBN_1"))
+
+
+# residual block counts per darknet depth
+_BLOCKS = {21: (1, 1, 2, 2, 1), 53: (1, 2, 8, 8, 4)}
+
+
+def rangenet_entries(layers: int = 21):
+    blocks = _BLOCKS[layers]
+    e = []
+    e += _cab("backbone.conv1", "backbone.bn1", "ConvBN_0")
+    bb = 0
+    for s in range(5):
+        e += _cab(f"backbone.enc{s + 1}.conv", f"backbone.enc{s + 1}.bn",
+                  f"ConvBN_{s + 1}")
+        for i in range(blocks[s]):
+            e += _basic_block(f"backbone.enc{s + 1}.residual_{i}",
+                              f"BasicBlock_{bb}")
+            bb += 1
+    for d in range(5):
+        dec = f"decoder.dec{5 - d}"
+        e += _convT(f"{dec}.upconv", f"UpConvBN_{d}/ConvTranspose_0")
+        e += _bn(f"{dec}.bn", f"UpConvBN_{d}/BatchNorm_0")
+        e += _basic_block(f"{dec}.residual", f"BasicBlock_{bb}")
+        bb += 1
+    e += _conv("head.1", "cls_head")
+    e += _projector()
+    return e
+
+
+def _sac_block(torch_prefix: str, flax_scope: str):
+    return (
+        _conv(f"{torch_prefix}.attention_x.0", f"{flax_scope}/attention_conv")
+        + _bn(f"{torch_prefix}.attention_x.1", f"{flax_scope}/attention_bn")
+        + _conv(f"{torch_prefix}.position_mlp_2.0", f"{flax_scope}/Conv_0")
+        + _bn(f"{torch_prefix}.position_mlp_2.1", f"{flax_scope}/BatchNorm_0")
+        + _conv(f"{torch_prefix}.position_mlp_2.3", f"{flax_scope}/Conv_1")
+        + _bn(f"{torch_prefix}.position_mlp_2.4", f"{flax_scope}/BatchNorm_1")
+    )
+
+
+def squeezesegv3_entries(layers: int = 21):
+    blocks = _BLOCKS[layers]
+    e = []
+    e += _cab("backbone.conv1", "backbone.bn1", "ConvBN_0")
+    sac = 0
+    conv_bn = 1
+    downsampled = (True, True, True, False, False)
+    for s in range(5):
+        for i in range(blocks[s]):
+            e += _sac_block(f"backbone.enc{s + 1}.residual_{i}",
+                            f"SACBlock_{sac}")
+            sac += 1
+        if downsampled[s]:
+            e += _cab(f"backbone.enc{s + 1}.conv", f"backbone.enc{s + 1}.bn",
+                      f"ConvBN_{conv_bn}")
+            conv_bn += 1
+    bb = 0
+    up = 0
+    for d, stride2 in zip(range(5), (False, False, True, True, True)):
+        dec = f"decoder.dec{5 - d}"
+        if stride2:
+            e += _convT(f"{dec}.upconv", f"UpConvBN_{up}/ConvTranspose_0")
+            e += _bn(f"{dec}.bn", f"UpConvBN_{up}/BatchNorm_0")
+            up += 1
+        else:
+            e += _cab(f"{dec}.conv", f"{dec}.bn", f"ConvBN_{conv_bn}")
+            conv_bn += 1
+        e += _basic_block(f"{dec}.residual", f"BasicBlock_{bb}")
+        bb += 1
+    e += _conv("head5.1", "head5")
+    e += _projector()
+    return e
+
+
+_ENTRIES = {
+    "salsanext": lambda layers: salsanext_entries(),
+    "rangenet": rangenet_entries,
+    "squeezesegv3": squeezesegv3_entries,
+}
+
+# layers of SalsaNext's other modes, which the reference has not: the s2d
+# stems' head takes the place of cls_head, the classification head that of
+# the decoder
+_SALSANEXT_OPTIONAL = (_conv("cls_head_s2d", "cls_head_s2d")
+                       + [("dense", "fc.fc", ("fc", "Dense_0"))])
+
+
+def _entries(params, net_type: str, layers: int):
+    """The entry table of ``net_type``, fitted to what a SalsaNext tree
+    holds: an s2d or classification model lacks ``cls_head`` (and, in
+    classification mode, the decoder and the projector)."""
+    if net_type not in _ENTRIES:
+        raise ValueError(f"unknown net_type: {net_type}")
+    entries = _ENTRIES[net_type](layers)
+    if net_type == "salsanext":
+        extra = [e for e in _SALSANEXT_OPTIONAL if e[2][0] in params]
+        if extra:
+            entries = [e for e in entries if e[2][0] in params] + extra
+    return entries
 
 
 def _get(tree, path):
@@ -75,26 +198,27 @@ def _get(tree, path):
     return tree
 
 
-def _check_net(net_type: str) -> None:
-    if net_type != "salsanext":
-        raise NotImplementedError(
-            f"net_type={net_type!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 17); only 'salsanext' is")
-
-
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def params_from_jax(params) -> dict[str, torch.Tensor]:
-    """A tree laid out like the JAX SalsaNext ``params`` (the params
+def params_from_jax(params, net_type: str = "salsanext", layers: int = 21
+                    ) -> dict[str, torch.Tensor]:
+    """A tree laid out like a JAX model's ``params`` (the params
     themselves, or optax moments of them) -> port parameter names."""
     sd: dict[str, torch.Tensor] = {}
-    for kind, t, path in salsanext_entries():
+    for kind, t, path in _entries(params, net_type, layers):
         node = _get(params, path)
-        if kind == "conv":
-            sd[f"{t}.weight"] = _tensor(
-                np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        if kind in ("conv", "convT", "dense"):
+            kernel = np.asarray(node["kernel"])
+            if kind == "conv":
+                weight = kernel.transpose(3, 2, 0, 1)
+            elif kind == "convT":
+                # unflip, then (kh, kw, I, O) -> (I, O, kh, kw)
+                weight = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                weight = kernel.T
+            sd[f"{t}.weight"] = _tensor(weight)
             if "bias" in node:
                 sd[f"{t}.bias"] = _tensor(node["bias"])
         else:
@@ -103,15 +227,14 @@ def params_from_jax(params) -> dict[str, torch.Tensor]:
     return sd
 
 
-def state_dict_from_jax(variables, net_type: str = "salsanext"
-                        ) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(variables, net_type: str = "salsanext",
+                        layers: int = 21) -> dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` -> port state dict (float32 CPU
     tensors). Raises KeyError naming the first layer the variables lack."""
-    _check_net(net_type)
-    params = params_from_jax(variables["params"])
+    params = params_from_jax(variables["params"], net_type, layers)
     stats = variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
-    for kind, t, path in salsanext_entries():
+    for kind, t, path in _entries(variables["params"], net_type, layers):
         for name in ("weight", "bias"):
             if f"{t}.{name}" in params:
                 sd[f"{t}.{name}"] = params[f"{t}.{name}"]
@@ -134,7 +257,8 @@ def _adam_moments(opt_state):
     return None
 
 
-def train_state_from_jax(state, net_type: str = "salsanext") -> dict:
+def train_state_from_jax(state, net_type: str = "salsanext",
+                         layers: int = 21) -> dict:
     """The JAX package's ``TrainState`` (its fields: ``params``,
     ``batch_stats``, ``opt_state`` of ``optax.adamw``, ``prototypes``,
     ``step``) -> what the port's ``TrainState.load`` takes:
@@ -145,17 +269,16 @@ def train_state_from_jax(state, net_type: str = "salsanext") -> dict:
     Adam's ``mu`` / ``nu`` are laid out like the params, so they go through
     the same mapping (conv kernels (kh, kw, I, O) -> (O, I, kh, kw)).
     """
-    _check_net(net_type)
     adam = _adam_moments(state.opt_state)
     if adam is None:
         raise ValueError("opt_state holds no Adam moments (mu, nu)")
-    mu = params_from_jax(adam.mu)
-    nu = params_from_jax(adam.nu)
+    mu = params_from_jax(adam.mu, net_type, layers)
+    nu = params_from_jax(adam.nu, net_type, layers)
     count = int(np.asarray(adam.count))
     return {
         "model": state_dict_from_jax(
             {"params": state.params, "batch_stats": state.batch_stats},
-            net_type),
+            net_type, layers),
         "prototypes": _tensor(state.prototypes),
         "step": int(np.asarray(state.step)),
         "optimizer": {name: {"exp_avg": mu[name], "exp_avg_sq": nu[name],

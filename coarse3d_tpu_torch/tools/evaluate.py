@@ -8,8 +8,9 @@ Port of the JAX package's ``tools/evaluate.py``. Covers BASELINE config #1
 
 ``--weights`` is a reference-named ``.pth`` state dict. Also accepts run
 dirs produced by tools/train.py (--run_dir), and --synthetic for smoke
-runs. Runs on the card unless ``--device cpu`` is given. ``--crf`` is not
-ported yet and raises.
+runs. Runs on the card unless ``--device cpu`` is given. ``--crf`` refines
+the softmax with the xyz CRF before the argmax, with the untrained kernel
+or ``--crf_kernel`` from tools/train_crf.py.
 """
 
 from __future__ import annotations
@@ -100,10 +101,6 @@ def main(argv=None):
         # without this the kernel is loaded but never applied, and the
         # reported mIoU would be silently attributed to the trained CRF
         raise SystemExit("--crf_kernel requires --crf")
-    if args.crf:
-        raise NotImplementedError(
-            "--crf / --crf_kernel are not ported yet (ROADMAP.md Queue 1 "
-            "item 16)")
 
     import numpy as np
 
@@ -164,7 +161,11 @@ def main(argv=None):
 
         state = restore_from_run_dir(state, args.run_dir, args.ckpt)
 
-    eval_step = make_eval_step(cfg, use_knn=args.knn,
+    crf_kernel = None
+    if args.crf_kernel:
+        crf_kernel = np.load(args.crf_kernel)["kernel"]
+    eval_step = make_eval_step(cfg, use_knn=args.knn, use_crf=args.crf,
+                               crf_kernel=crf_kernel,
                                return_point_pred=bool(args.save_preds))
     evaluator = ConfusionState(cfg.data.n_classes,
                                ignore=(cfg.train.ignore_cls,))

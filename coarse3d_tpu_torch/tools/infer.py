@@ -1,9 +1,10 @@
 """Scan inference CLI: raw .bin scans -> .label files, on the card.
 
 Port of the JAX package's ``tools/infer.py``. Runs the device pipeline
-(projection -> SalsaNext -> optional KNN; ``eval/inference.py``) over bare
-scan files and writes SemanticKITTI benchmark-format raw-id .label files
-(int32 per point), no labels or dataset layout needed.
+(projection -> the configured model -> optional KNN;
+``eval/inference.py``) over bare scan files and writes SemanticKITTI
+benchmark-format raw-id .label files (int32 per point), no labels or
+dataset layout needed.
 
   python -m coarse3d_tpu_torch.tools.infer --weights model.pth \
       --preset semantic_kitti --scans 000000.bin 000001.bin --out preds/

@@ -3,8 +3,9 @@
 Port of the JAX package's ``tools/train.py``. Behavioral model:
 tasks/weak_segmentation/main.py:178-198 + run.sh: config from YAML or a
 preset, experiment dir stamped with date + id, optional resume. One
-process, one card (``--device cpu`` for the CPU); ``--multihost`` and the
-``s2d`` / ``s2d_w`` stems are not ported yet and raise.
+process, one card (``--device cpu`` for the CPU); ``--multihost`` is not
+ported yet and raises. Any ``model.net_type`` / ``model.layers`` /
+``model.stem`` the config or ``--set`` names is built.
 
   python -m coarse3d_tpu_torch.tools.train --preset semantic_kitti \
       --pcd_root .../sequences --weak_root .../weak --id v1.0
@@ -71,7 +72,7 @@ def main(argv=None):
     p.add_argument("--stem", choices=("parity", "s2d", "s2d_w"),
                    help="model stem override: 'parity' (reference-exact), "
                         "'s2d' (2x2 space-to-depth) or 's2d_w' (width-only "
-                        "1x2); only 'parity' is ported")
+                        "1x2, full row resolution)")
     p.add_argument("--multihost", action="store_true",
                    help="multi-process training (not ported yet: raises)")
     p.add_argument("--profile_steps", type=int, nargs=2, default=None,
@@ -84,10 +85,6 @@ def main(argv=None):
     if args.multihost:
         raise NotImplementedError(
             "--multihost is not ported yet (ROADMAP.md Queue 1 item 15)")
-    if args.stem in ("s2d", "s2d_w"):
-        raise NotImplementedError(
-            f"--stem {args.stem} is not ported yet (ROADMAP.md Queue 1 item "
-            "17); only the parity stem is")
     if args.pretrained and args.resume:
         raise SystemExit(
             "cannot use pretrained weights and checkpoint resume together "

@@ -1,14 +1,12 @@
 """Experiment wiring: model, optimizer, focal alpha and training state,
-the port of the JAX package's ``train/setup.py`` for the SalsaNext parity
-model.
+the port of the JAX package's ``train/setup.py``: the three model families
+(``salsanext`` with its ``parity`` / ``s2d`` / ``s2d_w`` stems, ``rangenet``
+and ``squeezesegv3`` at 21 or 53 layers).
 
 AdamW matches the reference's ``torch.optim.AdamW(params, lr)``: torch's
 default weight decay 0.01 applies there (the YAML weight_decay is unused,
 PARITY.md defect #5), on every parameter, BatchNorm scales and biases
 included, as ``optax.adamw`` applies it in the JAX package.
-
-The other backbones (``rangenet``, ``squeezesegv3``) and the space-to-depth
-stems (``s2d``, ``s2d_w``) are not ported yet: ROADMAP.md Queue 1 item 17.
 """
 
 from __future__ import annotations
@@ -23,7 +21,9 @@ import numpy as np
 from coarse3d_tpu_torch.configs.config import ExperimentConfig
 from coarse3d_tpu_torch.device import resolve_device
 from coarse3d_tpu_torch.losses.focal import focal_alpha_from_counts
+from coarse3d_tpu_torch.models.rangenet import RangeNet
 from coarse3d_tpu_torch.models.salsanext import SalsaNext
+from coarse3d_tpu_torch.models.squeezesegv3 import SqueezeSegV3
 from coarse3d_tpu_torch.train.schedule import (
     Schedule,
     lr_lambda,
@@ -36,13 +36,16 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every conv's weight and bias from ``generator`` with PyTorch's
-    default Conv2d scheme (uniform in +-1/sqrt(fan_in)); BatchNorm starts at
-    scale 1, shift 0, running stats (0, 1). Drawn on the CPU, so the same
-    seed gives the same weights on any device."""
+    """Draw every conv's, transposed conv's and linear layer's weight and
+    bias from ``generator`` with PyTorch's default scheme (uniform in
+    +-1/sqrt(fan_in)); BatchNorm starts at scale 1, shift 0, running stats
+    (0, 1). Drawn on the CPU, so the same seed gives the same weights on any
+    device."""
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.in_channels // mod.groups * math.prod(mod.kernel_size)
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # PyTorch's fan_in: the weight's second dimension times the
+            # kernel's size (for a transposed conv, the output channels)
+            fan_in = mod.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             for t in (mod.weight, mod.bias):
                 if t is not None:
@@ -52,33 +55,58 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             mod.reset_parameters()
 
 
-def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda",
-                seed: int = 0) -> SalsaNext:
-    """The configured model in eval mode on ``device``, weights drawn from
-    a ``torch.Generator`` seeded with ``seed`` (load trained weights with
-    ``load_state_dict`` afterwards)."""
-    dev = resolve_device(device)
-    if cfg.model.net_type != "salsanext":
-        raise NotImplementedError(
-            f"net_type={cfg.model.net_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 17); only 'salsanext' is")
-    if cfg.model.stem != "parity":
-        raise NotImplementedError(
-            f"model.stem={cfg.model.stem!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 17); only the parity stem is")
+STEM_FACTORS = {"parity": (1, 1), "s2d": (2, 2), "s2d_w": (1, 2)}
+
+
+def _make_model(cfg: ExperimentConfig) -> nn.Module:
+    poss = cfg.data.dataset == "semantic_poss"
     if cfg.model.compute_dtype not in _DTYPES:
         raise ValueError(f"unknown model.compute_dtype "
                          f"{cfg.model.compute_dtype!r}")
-    model = SalsaNext(
+    kwargs = dict(
         n_classes=cfg.data.n_classes,
         in_channels=cfg.model.in_channels,
         base_channels=cfg.model.base_channels,
         proj_dim=cfg.contrast.proj_dim,
         dropout_rate=cfg.model.dropout_rate,
         compute_dtype=_DTYPES[cfg.model.compute_dtype],
-        # POSS pads H and W by +8 (salsanext_proto.py:426-431)
-        pad_hw=8 if cfg.data.dataset == "semantic_poss" else 0,
     )
+    if cfg.model.net_type == "salsanext":
+        # "s2d" stacks 2x2 pixels into channels (network at half H, half W);
+        # "s2d_w" stacks 1x2 (full H, half W)
+        if cfg.model.stem not in STEM_FACTORS:
+            raise ValueError(f"unknown model.stem: {cfg.model.stem!r} "
+                             f"(choose from {sorted(STEM_FACTORS)})")
+        fi, fj = STEM_FACTORS[cfg.model.stem]
+        if fi * fj > 1:
+            h = cfg.sensor.proj_h + (8 if poss else 0)
+            w = cfg.sensor.proj_w + (8 if poss else 0)
+            if h % (16 * fi) or w % (16 * fj):
+                raise ValueError(
+                    f"stem='{cfg.model.stem}' runs the network at 1/{fi} x "
+                    f"1/{fj} resolution, so H and W (after any POSS padding) "
+                    f"must divide {16 * fi} and {16 * fj}; got {h}x{w} for "
+                    f"dataset={cfg.data.dataset}. Use the parity stem for "
+                    f"this sensor geometry.")
+        # POSS pads H and W by +8 (salsanext_proto.py:426-431)
+        return SalsaNext(pad_hw=8 if poss else 0, s2d_factors=(fi, fj),
+                         **kwargs)
+    if cfg.model.net_type == "rangenet":
+        # POSS pads W by +24 (rangenet_proto.py:583-587)
+        return RangeNet(layers=cfg.model.layers, pad_w=24 if poss else 0,
+                        **kwargs)
+    if cfg.model.net_type == "squeezesegv3":
+        return SqueezeSegV3(layers=cfg.model.layers, **kwargs)
+    raise ValueError(f"unknown net_type: {cfg.model.net_type}")
+
+
+def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda",
+                seed: int = 0) -> nn.Module:
+    """The configured model in eval mode on ``device``, weights drawn from
+    a ``torch.Generator`` seeded with ``seed`` (load trained weights with
+    ``load_state_dict`` afterwards)."""
+    dev = resolve_device(device)
+    model = _make_model(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

@@ -45,6 +45,7 @@ from coarse3d_tpu_torch.models.prototypes import (
 )
 from coarse3d_tpu_torch.ops.knn import knn_postprocess
 from coarse3d_tpu_torch.ops.projection import normalize_features
+from coarse3d_tpu_torch.postproc.crf import crf_refine, init_compat_kernel
 from coarse3d_tpu_torch.train.state import TrainState
 
 _TINY = float(np.finfo(np.float32).tiny)
@@ -192,22 +193,42 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
 
 
 def make_eval_step(cfg: ExperimentConfig, use_knn: bool = False,
-                   return_point_pred: bool = False, use_crf: bool = False):
+                   return_point_pred: bool = False, use_crf: bool = False,
+                   crf_kernel=None):
     """``use_knn`` applies the KNN range cleanup to the unprojected labels
-    before the confusion matrix (kernel K2 on the card). The CRF refinement
-    is not ported yet."""
-    if use_crf:
-        raise NotImplementedError(
-            "use_crf is not ported yet (ROADMAP.md Queue 1 item 16)")
+    before the confusion matrix (kernel K2 on the card). ``use_crf`` refines
+    the 2D softmax with the locally-connected xyz CRF before the argmax (the
+    reference ships that module but never calls it; here it is an opt-in).
+    ``crf_kernel`` supplies a TRAINED (C, C) compatibility matrix
+    (tools/train_crf.py); the default is the reference's untrained init."""
+    kernel_on: dict[torch.device, torch.Tensor] = {}  # made once per device
+
+    def compat_kernel(dev: torch.device) -> torch.Tensor:
+        if dev not in kernel_on:
+            kernel = (torch.as_tensor(np.asarray(crf_kernel, np.float32))
+                      if crf_kernel is not None
+                      else init_compat_kernel(cfg.data.n_classes,
+                                              xyz_coef=0.1))
+            kernel_on[dev] = kernel.to(dev)
+        return kernel_on[dev]
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict[str, torch.Tensor]):
-        features, _, _, _, _ = _prepare_inputs(batch, cfg)
+        features, _, _, _, eval_mask = _prepare_inputs(batch, cfg)
         state.model.eval()
         logits = state.model(features.permute(0, 3, 1, 2).contiguous(),
                              return_feat=False)["logits"]
-        # argmax over logits (softmax is monotonic); the first maximum wins
-        argmax_2d = torch.argmax(logits, dim=1).to(torch.int32)
+        if use_crf:
+            # feature channels 1:4 are the projected xyz (pipeline layout)
+            refined = crf_refine(
+                batch["features"][..., 1:4].float(),
+                torch.softmax(logits, dim=1).permute(0, 2, 3, 1), eval_mask,
+                compat_kernel(logits.device))
+            argmax_2d = torch.argmax(refined, dim=-1).to(torch.int32)
+        else:
+            # argmax over logits (softmax is monotonic); the first maximum
+            # wins
+            argmax_2d = torch.argmax(logits, dim=1).to(torch.int32)
         if use_knn:
             point_pred = knn_postprocess(
                 batch["features"][..., 0].float().contiguous(),

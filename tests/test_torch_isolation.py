@@ -269,10 +269,42 @@ def test_run_loop_cli_flags_cover_the_originals():
         with open(os.path.join(REPO, package, rel)) as f:
             return set(re.findall(r'add_argument\(\s*"(--\w+)"', f.read()))
 
-    for rel in ("tools/train.py", "tools/evaluate.py", "tools/infer.py"):
+    for rel in ("tools/train.py", "tools/evaluate.py", "tools/infer.py",
+                "tools/train_crf.py"):
         port, orig = flags("coarse3d_tpu_torch", rel), flags("coarse3d_tpu", rel)
         assert orig <= port, (rel, sorted(orig - port))
         assert "--device" in port - orig, rel
+
+
+@pytest.mark.parametrize("net,layers", [
+    ("salsanext", 21), ("rangenet", 21), ("rangenet", 53),
+    ("squeezesegv3", 21), ("squeezesegv3", 53)])
+def test_converter_entry_tables_match_jax(net, layers):
+    """The port's own copies of the checkpoint converter's entry tables
+    (kind, reference name, Flax path) equal the JAX package's, row for row,
+    and so do the block counts of both depths."""
+    from coarse3d_tpu.models import rangenet as jrange
+    from coarse3d_tpu.tools import convert_torch_ckpt as jconv
+    from coarse3d_tpu_torch.models import rangenet as trange
+    from coarse3d_tpu_torch.tools import convert_jax_params as tconv
+
+    want = [(e.kind, e.torch_prefix, e.flax_path)
+            for e in jconv._ENTRIES[net](layers)]
+    assert tconv._ENTRIES[net](layers) == want
+    assert trange.MODEL_BLOCKS == jrange.MODEL_BLOCKS == tconv._BLOCKS
+    assert trange.BN_MOM == pytest.approx(1.0 - jrange.BN_MOM)
+
+
+def test_new_modules_are_imported_by_the_walk():
+    """The modules of the other families and the post-processing are part
+    of the package that test_import_loads_no_jax walks."""
+    import pkgutil
+
+    names = {m.name for m in pkgutil.walk_packages(
+        coarse3d_tpu_torch.__path__, coarse3d_tpu_torch.__name__ + ".")}
+    for mod in ("models.rangenet", "models.squeezesegv3", "postproc",
+                "postproc.crf", "postproc.border", "tools.train_crf"):
+        assert f"coarse3d_tpu_torch.{mod}" in names, mod
 
 
 def test_batch_keys_and_config_surface_match():

@@ -132,13 +132,20 @@ def test_build_model_wiring():
 @pytest.mark.parametrize("section,field,value", [
     ("model", "net_type", "rangenet"), ("model", "stem", "s2d")])
 def test_build_model_unported_options_raise(section, field, value):
+    """These options were refused once; now they build (held against JAX in
+    tests/test_torch_families.py). The 2x2 stem needs 32 rows."""
     import dataclasses
 
     cfg = preset("tiny")
-    cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
-        getattr(cfg, section), **{field: value})})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+    cfg = dataclasses.replace(
+        cfg, sensor=dataclasses.replace(cfg.sensor, proj_h=32),
+        **{section: dataclasses.replace(getattr(cfg, section),
+                                        **{field: value})})
+    model = build_model(cfg, device="cpu")
+    with torch.no_grad():
+        out = model(torch.zeros(1, 5, 32, 64))
+    assert out["logits"].shape == (1, cfg.data.n_classes, 32, 64)
+    assert (model.__class__.__name__ == "RangeNet") == (value == "rangenet")
 
 
 def test_load_reference_state_dict_unwraps(tmp_path):

@@ -296,10 +296,12 @@ def test_eval_step_matches(run, use_knn):
                                   np.asarray(want["confusion"]))
 
 
-def test_eval_step_crf_and_ddp_parity_raise():
+def test_eval_step_crf_and_ddp_parity_raise(run):
+    """use_crf builds and runs (tests/test_torch_postproc.py holds it against
+    JAX); contrast.ddp_parity_protos still waits for multi-GPU."""
     cfg = preset("tiny")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tstep.make_eval_step(cfg, use_crf=True)
+    out = tstep.make_eval_step(cfg, use_crf=True)(run["tstate"], run["tb"])
+    assert int(out["confusion"].sum()) == int(run["tb"]["point_valid"].sum())
     ddp = dataclasses.replace(cfg, contrast=dataclasses.replace(
         cfg.contrast, ddp_parity_protos=True))
     with pytest.raises(NotImplementedError, match="item 15"):
