@@ -82,7 +82,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts every valid point; ``tools/train_crf.py`` for 1 epoch on phase
    9's run directory and ``tools/evaluate.py --crf --crf_kernel --knn`` on
    its output, in-process; the CRF's ms at B=16 and the eval step's ms with
-   and without it.
+   and without it;
+13. data parallelism over an NCCL group of one, in process, at full width
+   (B=4, float32 with TF32 off, dropout on, the same batch and noise as
+   the plain step): the group's collectives issued for real (all-reduce
+   and all-gather forward and backward, int64, uint8, the generator's
+   broadcast), then one warmup and two contrast steps through
+   ``make_train_step(mesh=...)`` with PyTorch's deterministic algorithms,
+   K3 launched once a contrast step; the
+   same program as the plain step, so against it the first step's losses
+   within 1e-6 and its confusion equal and, three steps on, losses 1e-4, confusion exact,
+   BatchNorm statistics 1e-5, memory 1e-5, gradient cosines 0.999,
+   parameters 1e-5; the contrast step's ms over the group and plain, in
+   bf16, and the BatchNorm kernels' device time in each (torch.profiler);
+14. two ranks spawned on the one card over gloo (NCCL refuses two ranks
+   on one device), B=2 each: one warmup and one contrast step equal phase
+   13's group of one on the concatenated batch (losses 1e-4, confusion
+   exact, BatchNorm statistics 1e-5, memory 1e-5, gradient cosines 0.999,
+   parameters 1e-5), the ranks' states bit-identical, K3 launched on each
+   rank; then ``tools/evaluate.py --multihost --knn`` of 4 scans over the
+   two ranks counts as one rank does, count for count, K2 launched.
 
 The build fails the run if ptxas reports a spill in any kernel.
 It prints the card's name and power limit (nvidia-smi), one line per timing
@@ -94,6 +113,7 @@ JAX reference is only named, in the ``replaces`` fields.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1095,6 +1115,354 @@ def crf_phase(cfg, dev, host, served_model, state, batch, n_valid, run_tmp,
     return launches + cli_launches
 
 
+MESH_CONTRAST_STEPS = 2     # contrast steps of phases 13-14, after a warmup
+MESH_REPS = 5
+EVAL_SCANS = 4              # scans of phase 14's evaluate
+EVAL_PRESET = "kitti"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_inputs(cfg, thost):
+    """The float32 config (TF32 off), B=TRAIN_BATCH host batch and global
+    noise that phases 13 and 14 share; dropout stays on (every rank draws
+    the global masks and keeps its stripe)."""
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    h, w = cfg.sensor.proj_h, cfg.sensor.proj_w
+    c, m, k = (cfg.data.n_classes, cfg.contrast.max_pixels_per_class,
+               cfg.contrast.sub_proto_size)
+    rng = np.random.default_rng(11)
+
+    def gumbel(shape):
+        u = np.maximum(rng.random(shape, dtype=np.float32),
+                       np.finfo(np.float32).tiny)
+        return -np.log(-np.log(u))
+
+    noise = {"select": gumbel((TRAIN_BATCH * h * w,)),
+             "anchor": rng.random((TRAIN_BATCH, c, cfg.contrast.num_anchor),
+                                  dtype=np.float32),
+             "proto": gumbel((c, m, k))}
+    return cfg32, thost, noise
+
+
+def run_mesh_steps(cfg, dev, host, noise, mesh, rank: int = 0,
+                   contrast_steps: int = MESH_CONTRAST_STEPS):
+    """One warmup and ``contrast_steps`` contrast steps from build_state's
+    seed-0 state on ``rank``'s stripe of the host batch (all of it without
+    a mesh); the result after the last, as CPU tensors."""
+    import torch
+
+    from coarse3d_tpu_torch.parallel.mesh import replicate_to_mesh
+    from coarse3d_tpu_torch.train.setup import build_alpha, build_state
+    from coarse3d_tpu_torch.train.step import batch_to_device, make_train_step
+
+    world = mesh.world if mesh is not None else 1
+    n = TRAIN_BATCH // world
+    batch = batch_to_device({k: v[rank * n:(rank + 1) * n]
+                             for k, v in host.items()}, dev)
+    state = build_state(cfg, device=dev, seed=0, steps_per_epoch=100)
+    if mesh is not None:
+        replicate_to_mesh(state, mesh)
+    alpha = build_alpha(cfg)
+    state, first = make_train_step(cfg, alpha, with_contrast=False,
+                                   mesh=mesh)(state, batch)
+    contrast = make_train_step(cfg, alpha, with_contrast=True, mesh=mesh)
+    for _ in range(contrast_steps):
+        state, metrics = contrast(state, batch, SELECT_RATIO, noise)
+    named = dict(state.model.named_parameters())
+    return {
+        "first_losses": {k: float(v) for k, v in first["losses"].items()},
+        "first_confusion": first["confusion"].cpu(),
+        "losses": {k: float(v) for k, v in metrics["losses"].items()},
+        "confusion": metrics["confusion"].cpu(),
+        "protos": state.prototypes.cpu(),
+        "buffers": {k: v.cpu() for k, v in state.model.state_dict().items()
+                    if "running" in k},
+        "params": {k: p.detach().cpu() for k, p in named.items()},
+        "mu": {k: state.optimizer.state[p]["exp_avg"].cpu()
+               for k, p in named.items()}}
+
+
+def compare_steps(got, want) -> dict[str, float]:
+    """Largest differences of two step results: the first step's losses
+    and the last step's (relative), confusion (points counted
+    differently), BatchNorm statistics (relative to each tensor's
+    largest), memory (absolute), gradients (Adam's first moment: the worst
+    tensor's cosine) and parameters (absolute, where the moment is at
+    least 1e-3 of its tensor's largest: below that Adam's step is the sign
+    of a rounding)."""
+    import torch
+
+    def rel(a, b):
+        return max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items())
+
+    def points(key):
+        return int((got[key] - want[key]).abs().sum()) // 2
+
+    out = {
+        "first_loss_rel": rel(got["first_losses"], want["first_losses"]),
+        "first_confusion_points": points("first_confusion"),
+        "loss_rel": rel(got["losses"], want["losses"]),
+        "confusion_points": points("confusion"),
+        "stats_rel": max(float((got["buffers"][k] - v).abs().max()
+                               / v.abs().max().clamp_min(1e-12))
+                         for k, v in want["buffers"].items()),
+        "memory_abs": float((got["protos"] - want["protos"]).abs().max()),
+        "grad_cos": 1.0, "param_abs": 0.0}
+    for k, mu in want["mu"].items():
+        top = float(mu.abs().max())
+        if not top > 1e-6:
+            continue                # a gradient that is 0 but for rounding
+        g = got["mu"][k]
+        out["grad_cos"] = min(out["grad_cos"], float(torch.nn.functional
+                                                     .cosine_similarity(
+                                                         g.flatten(),
+                                                         mu.flatten(), 0)))
+        big = mu.abs() >= 1e-3 * top
+        out["param_abs"] = max(out["param_abs"], float(
+            (got["params"][k] - want["params"][k])[big].abs().max()))
+    return out
+
+
+def nccl_collectives(dev, generator) -> None:
+    """Phase 13's collectives over the NCCL group of one, issued for real
+    (the step's wrappers skip them at world size 1): the differentiable
+    all-reduce and all-gather forward and backward on float32, the
+    confusion's int64 all-reduce, a uint8 all-gather (a bool mask's), and
+    the broadcast of the step generator's state."""
+    import torch
+    import torch.distributed as dist
+
+    from coarse3d_tpu_torch.parallel.mesh import _AllGather, _AllReduceSum
+
+    x = torch.linspace(-1.0, 1.0, 257, device=dev).requires_grad_()
+    y = _AllReduceSum.apply(x)
+    z = _AllGather.apply(x, 0, 1)
+    (3.0 * y + 2.0 * z).sum().backward()
+    conf = torch.arange(400, dtype=torch.int64, device=dev).view(20, 20)
+    summed = conf.clone()
+    dist.all_reduce(summed)
+    mask = (torch.arange(1000, device=dev) % 3 == 0).to(torch.uint8)
+    parts = [torch.empty_like(mask)]
+    dist.all_gather(parts, mask)
+    gen = generator.get_state().to(dev)
+    sent = gen.clone()
+    dist.broadcast(sent, src=0)
+    torch.cuda.synchronize()
+    ok = {"all_reduce": torch.equal(y.detach(), x.detach()),
+          "all_gather": torch.equal(z.detach(), x.detach()),
+          "backward": torch.equal(x.grad, torch.full_like(x, 5.0)),
+          "int64": torch.equal(summed, conf),
+          "uint8": torch.equal(parts[0], mask),
+          "broadcast": torch.equal(sent, gen)}
+    print(f"NCCL collectives over the group of one: {ok}")
+    check(all(ok.values()), f"an NCCL collective failed: {ok}")
+
+
+def bn_profile(step, state, batch, reps: int = 5) -> tuple[float, float]:
+    """Mean device ms of one call of step(state, batch) in all kernels and
+    in the BatchNorm kernels (names with ``batch_norm`` or ``bn_``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(state, batch, SELECT_RATIO)
+        torch.cuda.synchronize()
+    total = bn = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        total += e.device_time_total
+        if "batch_norm" in e.key.lower() or "bn_" in e.key.lower():
+            bn += e.device_time_total
+    check(total > 0, "torch.profiler recorded no device time")
+    return total / reps / 1e3, bn / reps / 1e3
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's included), warning where
+    an operation has none; uninitialised memory is left as it is."""
+    import torch
+    import torch.utils.deterministic
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def world_one_phase(cfg, dev, thost, k3, tag):
+    """Phase 13: the data-parallel step over an NCCL group of one, in
+    process, at full width: the group's collectives, the step against the
+    plain step, K3's launches, and its time beside the plain step's."""
+    import torch
+
+    from coarse3d_tpu_torch.parallel import destroy_mesh, make_mesh
+    from coarse3d_tpu_torch.parallel.mesh import replicate_to_mesh
+    from coarse3d_tpu_torch.train.setup import build_alpha, build_state
+    from coarse3d_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg32, host, noise = mesh_inputs(cfg, thost)
+    mesh = make_mesh(dev, init_method=f"tcp://localhost:{_free_port()}",
+                     rank=0, world_size=1)
+    try:
+        check(torch.distributed.get_backend() == "nccl", "not NCCL")
+        nccl_collectives(dev, build_state(cfg32, device=dev, seed=0,
+                                          steps_per_epoch=100).generator)
+        # deterministic algorithms for the comparisons (here and in phase
+        # 14's ranks): the default backward convolutions and scatter-adds
+        # may sum in another order from run to run, and a random network's
+        # later steps make more of that than of any difference between
+        # programs
+        with deterministic():
+            plain = run_mesh_steps(cfg32, dev, host, noise, None)
+            k3.proto_tail.launches = 0
+            one = run_mesh_steps(cfg32, dev, host, noise, mesh)
+            torch.cuda.synchronize()
+            launches = k3.proto_tail.launches
+            # phase 14's reference: one contrast step
+            first = run_mesh_steps(cfg32, dev, host, noise, mesh,
+                                   contrast_steps=1)
+        diff = compare_steps(one, plain)
+        print(f"multi-GPU step over an NCCL group of one, B={TRAIN_BATCH}, "
+              f"float32, 1 warmup + {MESH_CONTRAST_STEPS} contrast steps, "
+              f"against the plain step: largest differences {diff}; K3 "
+              f"launches {launches}")
+        check(launches == MESH_CONTRAST_STEPS,
+              f"K3 launched {launches} times in {MESH_CONTRAST_STEPS} "
+              f"contrast steps over the mesh")
+        # the same program (BatchNorm and every loss compute the same
+        # statistics over a group of one as without one): the first step
+        # equal to rounding, the last within tests/test_torch_parallel.py's
+        # tolerances
+        check(diff["first_loss_rel"] <= 1e-6
+              and diff["first_confusion_points"] == 0,
+              f"group of one vs plain, first step: {diff}")
+        check(diff["loss_rel"] <= 1e-4 and diff["confusion_points"] == 0
+              and diff["stats_rel"] <= 1e-5 and diff["memory_abs"] <= 1e-5
+              and diff["grad_cos"] >= 0.999 and diff["param_abs"] <= 1e-5,
+              f"group of one vs plain: {diff}")
+
+        # time on the real configuration (bf16 autocast), contrast step,
+        # and the BatchNorm kernels' share of its device time
+        batch = batch_to_device(host, dev)
+        alpha = build_alpha(cfg)
+        ms, prof = {}, {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            state = build_state(cfg, device=dev, seed=0, steps_per_epoch=100)
+            if m is not None:
+                replicate_to_mesh(state, m)
+            step = make_train_step(cfg, alpha, with_contrast=True, mesh=m)
+            ms[name] = time_ms(lambda: step(state, batch, SELECT_RATIO),
+                               reps=MESH_REPS)
+            prof[name] = bn_profile(step, state, batch)
+            del state
+        print(f"timing {tag} contrast step B={TRAIN_BATCH} (bf16) over an "
+              f"NCCL group of one {ms['mesh']:.3f} ms, plain step "
+              f"{ms['plain']:.3f} ms; device time (torch.profiler) "
+              + ", ".join(f"{k} {v[0]:.3f} ms of which BatchNorm kernels "
+                          f"{v[1]:.3f} ms" for k, v in prof.items()))
+    finally:
+        destroy_mesh()
+    return first, launches, ms
+
+
+def _rank_worker(rank, port, tmp, eval_argv):
+    """Phase 14's rank: the step on its stripe, then tools/evaluate.py
+    --multihost over the same gloo group (both ranks on one card)."""
+    import torch
+
+    from coarse3d_tpu_torch.ops import knn_vote as k2
+    from coarse3d_tpu_torch.ops import proto_update as k3
+    from coarse3d_tpu_torch.parallel import make_mesh
+    from coarse3d_tpu_torch.tools import evaluate
+
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    dev = inputs["device"]
+    mesh = make_mesh(dev, "gloo", init_method=f"tcp://localhost:{port}",
+                     rank=rank, world_size=2)
+    with deterministic():                   # as phase 13's reference
+        out = run_mesh_steps(inputs["cfg"], mesh.device, inputs["host"],
+                             inputs["noise"], mesh, rank, contrast_steps=1)
+    out["proto_launches"] = k3.proto_tail.launches
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    out["evaluate"] = evaluate.main(eval_argv + ["--multihost"])
+    out["knn_launches"] = k2.knn_vote.launches
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def two_rank_phase(cfg, dev, thost, one, tag):
+    """Phase 14: two ranks spawned on the one card over gloo, B=2 each:
+    a warmup and a contrast step equal phase 13's group of one on the
+    concatenated batch, and a two-rank evaluate counts as one rank does."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from coarse3d_tpu_torch.tools import evaluate
+
+    cfg32, host, noise = mesh_inputs(cfg, thost)
+    eval_argv = ["--preset", EVAL_PRESET, "--synthetic", str(EVAL_SCANS),
+                 "--batch_size", "2", "--knn", "--num_workers", "2",
+                 "--device", str(dev)]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"cfg": cfg32, "host": host, "noise": noise,
+                    "device": str(dev)}, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        mp.spawn(_rank_worker, args=(_free_port(), tmp, eval_argv),
+                 nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    want = evaluate.main(eval_argv)
+    launches = {"proto_tail": sum(r["proto_launches"] for r in ranks),
+                "knn_vote": sum(r["knn_launches"] for r in ranks)}
+    diffs = [compare_steps(r, one) for r in ranks]
+    print(f"multi-GPU step over two gloo ranks on one card, B=2 each, "
+          f"float32, 1 warmup + 1 contrast step, against the group of one "
+          f"on B={TRAIN_BATCH}: largest "
+          f"differences {diffs[0]} (rank 0), {diffs[1]} (rank 1); ranks "
+          f"spawned and run in {spawn_s:.1f} s; launches {launches}")
+    for r in ranks[1:]:
+        check(all(torch.equal(v, r["params"][k])
+                  for k, v in ranks[0]["params"].items())
+              and torch.equal(r["protos"], ranks[0]["protos"]),
+              "the two ranks hold different states")
+    for d in diffs:
+        # the same arithmetic on a split batch: tests/test_torch_parallel.py's
+        # tolerances
+        check(d["first_loss_rel"] <= 1e-4 and d["loss_rel"] <= 1e-4
+              and d["first_confusion_points"] == 0
+              and d["confusion_points"] == 0 and d["stats_rel"] <= 1e-5
+              and d["memory_abs"] <= 1e-5 and d["grad_cos"] >= 0.999
+              and d["param_abs"] <= 1e-5, f"two ranks vs one: {d}")
+    check(launches["proto_tail"] == 2,
+          f"K3 launches over two ranks: {launches}")
+    check(launches["knn_vote"] >= 2, f"K2 launches in evaluate: {launches}")
+    got = [r["evaluate"]["confusion"] for r in ranks]
+    print(f"evaluate of {EVAL_SCANS} scans over two ranks: confusion "
+          f"{'equal' if got[0] == got[1] == want['confusion'] else 'UNEQUAL'}"
+          f" to one rank's, {sum(map(sum, want['confusion']))} points")
+    check(got[0] == got[1] == want["confusion"],
+          "two-rank evaluate does not count as one rank does")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1405,6 +1773,12 @@ def main() -> int:
                                  n_valid, run_tmp, k2, tag)
         phase_done("12 CRF and border mask")
         del served_model, fstate, tbatch
+
+    # -- 13-14. data parallelism ---------------------------------------------
+    one, mesh_launches, _ = world_one_phase(cfg, dev, thost, k3, tag)
+    phase_done("13 multi-GPU, NCCL group of one")
+    two_launches = two_rank_phase(cfg, dev, thost, one, tag)
+    phase_done("14 multi-GPU, two gloo ranks")
     print(f"timing {tag} wall seconds per phase: {phase_s}")
 
     kernels = [
@@ -1433,7 +1807,8 @@ def main() -> int:
                               "training": train_launches["knn_vote"],
                               "run_loop": loop_launches["knn_vote"],
                               "families_serving": family_serving["knn_vote"],
-                              "crf_eval": crf_launches},
+                              "crf_eval": crf_launches,
+                              "multi_gpu": two_launches["knn_vote"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None,
@@ -1444,7 +1819,9 @@ def main() -> int:
          "launches": train_launches["proto_tail"],
          "launches_by_path": {"training": train_launches["proto_tail"],
                               "run_loop": loop_launches["proto_tail"],
-                              "families_training": family_training},
+                              "families_training": family_training,
+                              "multi_gpu": (mesh_launches
+                                            + two_launches["proto_tail"])},
          "max_abs_err": max(k3_dense["err"], k3_train["err"]),
          "ms": k3_dense["ms"], "plain_ms": k3_dense["plain"],
          "bound_ms": k3_dense["bound"], "bound_by": k3_dense["by"],

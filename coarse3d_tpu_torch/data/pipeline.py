@@ -2,10 +2,12 @@
 
 Port of the JAX package's ``data/pipeline.py``: ``build_sample`` is a copy
 (the same scan and generator give the same arrays); ``DataPipeline`` differs
-in two ways: ``process_index`` / ``process_count`` default to 0 / 1 (one
-process; the arguments stay for the multi-process port), and with
-``pin_memory`` each batch is stacked straight into page-locked host tensors,
-so the Trainer's copies to the card can be asynchronous.
+in three ways: ``process_index`` / ``process_count`` default to 0 / 1 (one
+process); across processes a training epoch first drops the shuffled
+order's last ``n % process_count`` scans, so that every process takes the
+same number of steps (the JAX package's stripes may differ by one scan);
+and with ``pin_memory`` each batch is stacked straight into page-locked host
+tensors, so the Trainer's copies to the card can be asynchronous.
 
 Behavioral model: the torch `Dataset`/`DataLoader` stack —
 wss_sem_kitti_loader.py:92-251 (augment -> project -> label scatter -> weak
@@ -202,6 +204,11 @@ class DataPipeline:
                 (self.seed, epoch)).permutation(n)
         else:
             order = np.arange(n)
+        if self.train:
+            # every process takes the same number of scans, hence of steps:
+            # the data-parallel step's collectives need all of them in it
+            # (DistributedSampler(drop_last=True) cuts the same way)
+            order = order[:n - n % self.process_count]
         # stripe across hosts (DistributedSampler analog)
         order = order[self.process_index::self.process_count]
         if self.train:  # drop_last

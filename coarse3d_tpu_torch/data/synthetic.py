@@ -1,7 +1,8 @@
-"""Synthetic LiDAR scan fixtures (the port's copy of the JAX package's
-``data/synthetic.py``: ``synthetic_scan`` with uniform angles, the in-memory
-catalogs ``SyntheticDataset`` / ``SyntheticHardDataset`` and their scan
-generators, ``synthetic_batch`` and ``pad_points``).
+"""Synthetic LiDAR scan fixtures: the port's whole-module copy of the JAX
+package's ``data/synthetic.py`` (``synthetic_scan`` with its ``uniform`` /
+``grid`` / ``clustered`` angular modes, the in-memory catalogs
+``SyntheticDataset`` / ``SyntheticHardDataset`` and their scan generators,
+``synthetic_batch`` and ``pad_points``).
 
 The same numpy generator state gives the same scan, and the same training
 batch, in both packages, so a test or a smoke run can feed one batch to
@@ -21,17 +22,58 @@ def synthetic_scan(
     n_classes: int,
     sensor: SensorSpec,
     weak_ratio: float = 0.001,
+    angular: str = "uniform",
 ) -> dict[str, np.ndarray]:
     """One scan: (N, 4) points + full labels + weak labels.
 
-    Angles are i.i.d. uniform inside the sensor's field of view (~35% of
-    points lose their pixel to a nearer point at KITTI scale); depths follow
-    a gamma(2, 8) clipped to [1.5, 80] m.
+    `angular` controls the pixel-occupancy structure — the one property of
+    the synthetic distribution the point-rate ops (projection scatter, KNN
+    gather) could be sensitive to:
+
+      uniform    — i.i.d. angles (the default; ~35% of points lose their
+                   pixel to a nearer point at KITTI scale)
+      grid       — beam-structured like a real rotating scanner: points on
+                   H regular elevation rows, near-regular azimuth spacing
+                   with sub-pixel jitter (few-% pixel losers)
+      clustered  — 60% of points in ~2-px angular blobs (object-like
+                   foreground over a uniform background; worst-case scatter
+                   conflicts, well above real-scan loser rates)
     """
-    yaw = rng.uniform(np.radians(sensor.fov_left), np.radians(sensor.fov_right),
-                      n_points)
-    pitch = rng.uniform(np.radians(sensor.fov_down), np.radians(sensor.fov_up),
-                        n_points)
+    yaw_lo = np.radians(sensor.fov_left)
+    yaw_hi = np.radians(sensor.fov_right)
+    pit_lo = np.radians(sensor.fov_down)
+    pit_hi = np.radians(sensor.fov_up)
+    if angular == "uniform":
+        yaw = rng.uniform(yaw_lo, yaw_hi, n_points)
+        pitch = rng.uniform(pit_lo, pit_hi, n_points)
+    elif angular == "grid":
+        h = sensor.proj_h
+        row = np.arange(n_points) % h
+        per_row = -(-n_points // h)  # ceil: azimuth steps per beam
+        rank = np.arange(n_points) // h
+        u = (rank + rng.uniform(0.2, 0.8, n_points)) / per_row
+        v = (row + rng.uniform(0.2, 0.8, n_points)) / h
+        yaw = yaw_lo + u * (yaw_hi - yaw_lo)
+        pitch = pit_lo + v * (pit_hi - pit_lo)
+    elif angular == "clustered":
+        k = max(8, n_points // 3000)
+        n_bg = int(n_points * 0.4)
+        n_cl = n_points - n_bg
+        cu, cv = rng.uniform(0, 1, k), rng.uniform(0, 1, k)
+        blob = rng.integers(0, k, n_cl)
+        u = np.concatenate([
+            rng.uniform(0, 1, n_bg),
+            (cu[blob] + rng.normal(0, 2.0 / sensor.proj_w, n_cl)) % 1.0])
+        v = np.concatenate([
+            rng.uniform(0, 1, n_bg),
+            np.clip(cv[blob] + rng.normal(0, 2.0 / sensor.proj_h, n_cl),
+                    0.0, 1.0 - 1e-6)])
+        perm = rng.permutation(n_points)
+        u, v = u[perm], v[perm]
+        yaw = yaw_lo + u * (yaw_hi - yaw_lo)
+        pitch = pit_lo + v * (pit_hi - pit_lo)
+    else:
+        raise ValueError(f"unknown angular distribution: {angular!r}")
     depth = rng.gamma(shape=2.0, scale=8.0, size=n_points).clip(1.5, 80.0)
 
     x = depth * np.cos(pitch) * np.cos(-yaw)
@@ -294,13 +336,11 @@ def synthetic_batch(
     n_points: int = 20000,
     weak_ratio: float = 0.002,
 ) -> dict[str, np.ndarray]:
-    """Training batch dict exactly as the data pipeline emits it.
+    """Device-batch dict exactly as the data pipeline emits it.
 
     Keys: features (B,H,W,5) raw feature image, train_label / eval_label
-    (B,H,W) int32, point_px / point_py (B,P) int32, point_depth (B,P)
-    float32 (-1 on padding), point_label / point_weak_label (B,P) int32,
-    point_valid (B,P) bool. Projection on the host (numpy), as the pipeline
-    does it.
+    (B,H,W) int32, point_px / point_py (B,P) int32, point_label (B,P) int32,
+    point_weak_label (B,P) int32, point_valid (B,P) bool.
     """
     from coarse3d_tpu_torch.ops import projection
 
@@ -313,8 +353,8 @@ def synthetic_batch(
         scan = synthetic_scan(
             rng, n_points, cfg.data.n_classes, sensor, weak_ratio)
         proj = projection.range_project_np(scan["points"], sensor)
-        feats = projection.build_range_features_np(
-            proj["proj_points"], proj["proj_range"])
+        feats = projection.build_range_features(
+            proj["proj_points"], proj["proj_range"], xp=np)
         out["features"].append(feats)
         out["eval_label"].append(
             projection.scatter_labels_np(proj["proj_idx"], scan["labels"]))
@@ -346,9 +386,9 @@ def pad_points(
     the implicit "padded points map to pixel (0, 0)" convention.
     """
     n = arr.shape[0]
-    if n > max_points:
-        raise ValueError(f"scan has {n} > max_points={max_points}")
-    out = np.full((max_points,) + arr.shape[1:], fill, dtype=arr.dtype)
+    assert n <= max_points, f"scan has {n} > max_points={max_points}"
+    out_shape = (max_points,) + arr.shape[1:]
+    out = np.full(out_shape, fill, dtype=arr.dtype)
     out[:n] = arr
     valid = np.zeros(max_points, dtype=bool)
     valid[:n] = True

@@ -26,6 +26,7 @@ import torch
 
 from coarse3d_tpu_torch.configs.config import ContrastConfig
 from coarse3d_tpu_torch.models.prototypes import l2_normalize
+from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def sample_anchors(
@@ -85,10 +86,14 @@ def contrast_mem_loss(
     uniforms: torch.Tensor,
     cfg: ContrastConfig,
     ignore_cls: int = 0,
+    mesh=None,
 ) -> torch.Tensor:
     """Full ContrastMEMLoss: sample anchors, contrast against the memory.
     ``uniforms`` is (B, C, cfg.num_anchor); ``probs`` and ``prototypes``
-    carry no gradient (the caller detaches them)."""
+    carry no gradient (the caller detaches them). Anchors are drawn per
+    image; with ``mesh`` (the inputs are one rank's stripe) the mean is
+    over the global batch's valid anchors and the value is this rank's
+    share of it."""
     c, k, d = prototypes.shape
     labels = torch.where(keep_mask, labels, ignore_cls)
 
@@ -121,6 +126,6 @@ def contrast_mem_loss(
 
     per_anchor = -(cfg.temperature / cfg.base_temperature) * mean_log_prob_pos
     av = anchor_valid.to(torch.float32)
-    denom = av.sum()
+    denom = all_reduce_sum(av.sum(), mesh)
     return torch.where(denom > 0, (per_anchor * av).sum()
                        / torch.clamp_min(denom, 1.0), torch.zeros_like(denom))

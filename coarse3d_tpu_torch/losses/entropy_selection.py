@@ -37,6 +37,7 @@ def entropy_based_selection(
     select_ratio,
     gumbel: torch.Tensor,
     ignore_cls: int = 0,
+    global_batch: int | None = None,
 ):
     """Batched pseudo-label expansion.
 
@@ -47,6 +48,11 @@ def entropy_based_selection(
       train_label: (B, H, W) int weak labels.
       select_ratio: scalar keep ratio in [0, 1] (float or 0-d tensor).
       gumbel: (B*H*W,) float32 standard Gumbel noise.
+      global_batch: when the inputs are one rank's stripe of a larger
+        batch, that batch's size. Segments are per image, so the selection
+        is the rank's own; only the key width, and with it the score
+        quantisation, depends on the batch size, and it is taken from the
+        global one.
 
     Returns (pseudo_label (B, H, W) int32, pseudo_mask (B, H, W) bool).
     """
@@ -57,7 +63,8 @@ def entropy_based_selection(
     seg_per_img = c + 1  # classes 0..C-1 + non-candidate sentinel C
     n_seg = b * seg_per_img
     # quantized score width: segment id must fit in the remaining high bits
-    q_bits = 31 - max((n_seg - 1).bit_length(), 1)
+    key_seg = (global_batch or b) * seg_per_img
+    q_bits = 31 - max((key_seg - 1).bit_length(), 1)
     if q_bits < 16:
         raise ValueError(f"B={b}, C={c} leave {q_bits} < 16 score bits")
     q_max = (1 << q_bits) - 1

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def focal_alpha_from_counts(
     cls_counts, learning_ignore_mask=None, ignore_cls: int = 0
@@ -46,6 +48,7 @@ def focal_softmax_loss(
     alpha: torch.Tensor,
     mask: torch.Tensor | None = None,
     gamma: float = 2.0,
+    mesh=None,
 ) -> torch.Tensor:
     """Masked focal loss over probabilities.
 
@@ -55,6 +58,10 @@ def focal_softmax_loss(
       alpha: (C,) per-class weights.
       mask: (...,) bool/float; mean is taken over masked elements.
       gamma: focusing exponent.
+      mesh: ``parallel.mesh.Mesh`` when the inputs are one rank's stripe
+        of a global batch: the mean's denominator is then the global count,
+        and the value is this rank's share of the global loss (the shares
+        sum to it).
     """
     c = probs.shape[-1]
     flat_p = probs.reshape(-1, c)
@@ -64,9 +71,11 @@ def focal_softmax_loss(
     a_t = alpha.to(flat_p.dtype)[flat_t]
     loss = -((1.0 - p_t) ** gamma) * log_p * a_t
     if mask is None:
-        return loss.mean()
+        if mesh is None:
+            return loss.mean()
+        return loss.sum() / (loss.numel() * mesh.world)
     m = mask.reshape(-1).to(loss.dtype)
-    denom = m.sum()
+    denom = all_reduce_sum(m.sum(), mesh)
     out = (loss * m).sum() / torch.clamp_min(denom, 1.0)
     # reference returns 0 for an empty/NaN mask (focal_softmax.py:67-73)
     return torch.where(denom > 0, out, torch.zeros_like(out))

@@ -16,13 +16,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from coarse3d_tpu_torch.parallel.mesh import all_gather, all_reduce_sum
+
 
 def lovasz_budget_overflow(
-    labels: torch.Tensor, ignore: int, budget: int
+    labels: torch.Tensor, ignore: int, budget: int, mesh=None
 ) -> torch.Tensor:
     """Valid pixels beyond the ``budget`` sort cap of lovasz_softmax_loss
-    (int32 scalar; > 0 means the budgeted loss dropped pixels)."""
-    n_valid = (labels.reshape(-1) != ignore).sum()
+    (int32 scalar; > 0 means the budgeted loss dropped pixels); with
+    ``mesh``, those of the global batch."""
+    n_valid = all_reduce_sum((labels.reshape(-1) != ignore).sum(), mesh)
     return torch.clamp_min(n_valid - budget, 0).to(torch.int32)
 
 
@@ -32,6 +35,7 @@ def lovasz_softmax_loss(
     ignore: int = 0,
     classes: str = "present",
     budget: int | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Multi-class Lovász-Softmax.
 
@@ -45,18 +49,32 @@ def lovasz_softmax_loss(
         keeps the first ``budget`` pixels (valid ones first, in pixel
         order), so the per-class sorts run over ``budget`` elements. Exact
         as long as the valid count fits.
+      mesh: ``parallel.mesh.Mesh`` when the inputs are one rank's stripe
+        of a global batch. The loss is not a mean of per-rank values: each
+        rank keeps its first ``budget`` pixels (valid first), a
+        differentiable all-gather joins them in rank order, and the budget
+        is applied again, which gives the global batch's first ``budget``
+        pixels; every rank then sorts the same rows. The value is this
+        rank's share, the loss over the world size: the backward of the
+        gather sums the ranks' identical gradients.
     """
     c = probs.shape[-1]
-    flat_p = probs.reshape(-1, c).float()
-    flat_l = labels.reshape(-1).long()
-    valid = flat_l != ignore
 
-    if budget is not None and budget < flat_l.shape[0]:
-        order = torch.sort((~valid).to(torch.uint8), stable=True).indices
+    def keep_budget(flat_p, flat_l):
+        if budget is None or budget >= flat_l.shape[0]:
+            return flat_p, flat_l
+        order = torch.sort((flat_l == ignore).to(torch.uint8),
+                           stable=True).indices
         sel = order[:budget]
-        flat_p = flat_p[sel]
-        flat_l = flat_l[sel]
-        valid = valid[sel]
+        return flat_p[sel], flat_l[sel]
+
+    flat_p, flat_l = keep_budget(probs.reshape(-1, c).float(),
+                                 labels.reshape(-1).long())
+    world = 1 if mesh is None else mesh.world
+    if world > 1:
+        flat_p, flat_l = keep_budget(all_gather(flat_p, mesh),
+                                     all_gather(flat_l, mesh))
+    valid = flat_l != ignore
 
     vf = valid.to(torch.float32)[:, None]
     # one_hot of out-of-range labels is zero in JAX; clamp then mask
@@ -84,4 +102,4 @@ def lovasz_softmax_loss(
     total = (losses * weight).sum()
     count = weight.sum()
     return torch.where(count > 0, total / torch.clamp_min(count, 1.0),
-                       torch.zeros_like(total))
+                       torch.zeros_like(total)) / world

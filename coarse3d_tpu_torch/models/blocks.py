@@ -24,10 +24,12 @@ passes.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from coarse3d_tpu_torch.ops.resize import resize_bilinear
+from coarse3d_tpu_torch.parallel.mesh import all_gather
 
 LEAKY_SLOPE = 0.01
 
@@ -49,30 +51,115 @@ def pixel_shuffle(x: torch.Tensor, r: int = 2, rw: int | None = None
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training forward folds the BIASED batch
     variance into ``running_var``, as Flax's ``nn.BatchNorm`` folds it into
-    ``batch_stats.var``. PyTorch folds the unbiased one (n / (n - 1) times
-    larger), so the two drift apart by 1/(n - 1) of the variance per step.
+    ``batch_stats.var`` (PyTorch folds the unbiased one, n / (n - 1) times
+    larger, so the two would drift apart by 1/(n - 1) of the variance per
+    step). Parameter and buffer names are those of ``nn.BatchNorm2d``.
 
-    The normalisation itself is PyTorch's (biased batch variance, as in
-    Flax). PyTorch's update of the variance, (1 - m) old + m var_unbiased,
-    is rescaled in its m-term by (n - 1) / n to (1 - m) old + m var_biased,
-    with no second pass over the activations.
-    Parameter and buffer names are those of ``nn.BatchNorm2d``.
+    The training statistics are those of the global batch when ``mesh`` is
+    set (by ``parallel/mesh.py:replicate_to_mesh``), as under the JAX
+    package's sharded step, and of the local batch otherwise. Both come
+    from one computation (:class:`_BatchNormTrain`): every image's
+    per-channel mean and variance, gathered over the ranks in rank order
+    (no collective at world size 1), then combined. The per-image moments
+    do not depend on how the batch is split, so a step gives the same
+    statistics on any number of ranks, and a group of one is the plain step.
+    ``nn.SyncBatchNorm`` is not used: it folds the unbiased variance.
     """
+    mesh = None     # parallel.mesh.Mesh: set to synchronise across ranks
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
-        # PyTorch's update goes into a copy: the graph keeps what the op
-        # saw, and running_var is then written once, corrected
-        folded = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, folded, self.weight,
-                         self.bias, True, self.momentum, self.eps)
-        n = x.numel() // x.shape[1]
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
+                                             self.eps, self.mesh)
         with torch.no_grad():
-            kept = (1.0 - self.momentum) * self.running_var
-            self.running_var.copy_((folded - kept) * ((n - 1) / n) + kept)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
         return y
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training batch norm of an (N, C, H, W) tensor over the global batch:
+    returns the output, and the batch mean and biased variance (float32,
+    not differentiable) for the running statistics.
+
+    On a card it is built from the library's fused batch-norm primitives
+    (those ``nn.SyncBatchNorm`` is built from): ``batch_norm_stats`` on the
+    (1, N*C, H*W) view gives each image's moments, which are all-gathered
+    and combined by ``batch_norm_gather_stats_with_counts``;
+    ``batch_norm_elemt`` normalises; the backward is
+    ``batch_norm_backward_reduce``, an all-reduce of the two channel sums,
+    and ``batch_norm_backward_elemt``. The primitives have no CPU kernels:
+    there the same steps run as tensor expressions, the moments in float64.
+    The weight and bias gradients are the rank's own; the training step
+    sums them over ranks with every other gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        x = x.contiguous()
+        b, c = x.shape[:2]
+        world = 1 if mesh is None else mesh.world
+        if x.is_cuda:
+            per_image = torch.stack(torch.batch_norm_stats(
+                x.view(1, b * c, -1), eps)).view(2, b, c).transpose(0, 1)
+            moments = all_gather(per_image.contiguous(), mesh)
+            counts = torch.full((b * world,), x[0, 0].numel(),
+                                dtype=moments.dtype, device=x.device)
+            # the first argument only sets the arithmetic's type: float32
+            # (with no running statistics a bf16 x would make it bf16)
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                moments, moments[:, 0], moments[:, 1], None, None, 0.0, eps,
+                counts)
+            var = torch.clamp_min(invstd.pow(-2) - eps, 0.0)
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
+            xd = x.double().view(b, c, -1)
+            mean_i = xd.mean(-1)
+            var_i = (xd - mean_i[..., None]).square().mean(-1)
+            moments = all_gather(torch.stack([mean_i, var_i], 1), mesh)
+            mean64 = moments[:, 0].mean(0)      # every image has H*W pixels
+            var64 = (moments[:, 1] + (moments[:, 0] - mean64).square()
+                     ).mean(0)
+            mean, var = mean64.float(), var64.float()
+            invstd = torch.rsqrt(var64 + eps).float()
+            scale = invstd * weight
+            y = (x.float() * scale[:, None, None]
+                 + (bias - mean * scale)[:, None, None]).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh, ctx.n = mesh, b * world * x[0, 0].numel()
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, grad, _grad_mean, _grad_var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        grad = grad.contiguous()
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, grad_w, grad_b = (
+                torch.batch_norm_backward_reduce(grad, x, mean, invstd,
+                                                 weight, True, True, True))
+        else:
+            g, xmu = grad.float(), x.float() - mean[:, None, None]
+            sum_dy = g.sum(dim=(0, 2, 3))
+            sum_dy_xmu = (g * xmu).sum(dim=(0, 2, 3))
+            grad_w, grad_b = sum_dy_xmu * invstd, sum_dy
+        if ctx.mesh is not None and ctx.mesh.world > 1:
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(sums)
+            sum_dy, sum_dy_xmu = sums.chunk(2)
+        if x.is_cuda:
+            count = torch.full((1,), ctx.n, dtype=torch.int32,
+                               device=x.device)
+            grad_x = torch.batch_norm_backward_elemt(
+                grad, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count)
+        else:
+            grad_x = ((g - sum_dy[:, None, None] / ctx.n
+                       - xmu * (invstd.square() * sum_dy_xmu / ctx.n
+                                )[:, None, None])
+                      * (invstd * weight)[:, None, None]).to(x.dtype)
+        return grad_x, grad_w, grad_b, None, None
 
 
 class Dropout2d(nn.Module):
@@ -84,8 +171,11 @@ class Dropout2d(nn.Module):
     ``nn.Dropout2d`` draws from torch's global generator, so a run would
     not repeat from its seed: here the caller passes the generator (the
     training step passes ``state.generator``), and a training forward with
-    p > 0 and no generator raises.
+    p > 0 and no generator raises. With ``mesh`` set, the ranks' generators
+    are alike: each draws the masks of the global batch and keeps its
+    stripe, so the ranks together drop what one process would.
     """
+    mesh = None     # parallel.mesh.Mesh: draw the global batch's masks
 
     def __init__(self, p: float):
         super().__init__()
@@ -100,8 +190,14 @@ class Dropout2d(nn.Module):
         if generator is None:
             raise ValueError("Dropout2d in training needs an explicit "
                              "generator (the step passes state.generator)")
-        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+        b = x.shape[0]
+        world = self.mesh.world if self.mesh is not None else 1
+        # across ranks every generator is the same: each draws the global
+        # batch's masks and keeps its own stripe
+        u = torch.rand((b * world, x.shape[1], 1, 1), generator=generator,
                        device=generator.device).to(x.device)
+        if world > 1:
+            u = u[self.mesh.rank * b:(self.mesh.rank + 1) * b]
         scale = (u >= self.p).to(torch.float32) / (1.0 - self.p)
         return x * scale.to(x.dtype)
 

@@ -13,6 +13,17 @@ they are parameter-free LayerNorms here, as in the JAX package.
 sort (``ops/gather.py``) and hands the dense tail to
 ``ops/proto_update.py:proto_tail``: kernel K3 on a CUDA tensor, its plain
 twin on a CPU tensor. The Sinkhorn Gumbel noise is an argument.
+
+Across ranks (``mesh``, ``parallel/mesh.py``) there are two modes, as in
+the JAX package. By default one clustering runs over the global batch:
+each rank gathers its own (C, M, D) class rows, an all-gather joins them
+in rank order, and the first M valid rows of each class are kept, which
+are the global batch's own first M (it is the ranks' stripes in rank
+order). Every rank then runs the tail on the same rows with the same
+noise, so every memory is the same without a broadcast.
+``update_prototypes_ddp_parity`` is the reference's DDP update instead:
+each rank updates on its own stripe with its own noise, then the memories
+are averaged, with no renormalisation after.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 from coarse3d_tpu_torch.configs.config import ContrastConfig
 from coarse3d_tpu_torch.ops.gather import gather_class_indices
 from coarse3d_tpu_torch.ops.proto_update import proto_tail
+from coarse3d_tpu_torch.parallel.mesh import all_gather, all_reduce_sum
 
 
 def _layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -63,10 +75,12 @@ def gather_class_rows(
     label_mask: torch.Tensor,
     cfg: ContrastConfig,
     ignore_cls: int = 0,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dense inputs of the prototype tail: (feat_rows (C, M, D), valid
     (C, M), l2-normalized memory (C, K, D)), each class's budgeted rows
-    gathered with one stable sort. Arguments as :func:`update_prototypes`."""
+    gathered with one stable sort. Arguments as :func:`update_prototypes`;
+    with ``mesh``, the rows of the global batch."""
     c = prototypes.shape[0]
     b, h, w, d = embedding.shape
     with torch.no_grad():
@@ -80,7 +94,21 @@ def gather_class_rows(
         # reshape, so only the gathered rows are copied
         flat = embedding.detach().reshape(b, h * w, d)
         feat_rows = flat[idx // (h * w), idx % (h * w)].float()  # (C, M, D)
-        return feat_rows, valid, protos.contiguous()
+        if mesh is not None and mesh.world > 1:
+            m = valid.shape[1]
+            # (C, world * M) in rank order; each rank's valid rows are a
+            # prefix of its M, so a stable sort on validity keeps the
+            # global batch's first M rows of each class
+            rows = all_gather(feat_rows[None], mesh)
+            ok = all_gather(valid[None], mesh)
+            rows = rows.permute(1, 0, 2, 3).reshape(c, -1, d)
+            ok = ok.permute(1, 0, 2).reshape(c, -1)
+            keep = torch.sort((~ok).to(torch.uint8), dim=1,
+                              stable=True).indices[:, :m]
+            feat_rows = torch.gather(rows, 1,
+                                     keep[..., None].expand(-1, -1, d))
+            valid = torch.gather(ok, 1, keep)
+        return feat_rows.contiguous(), valid, protos.contiguous()
 
 
 def update_prototypes(
@@ -91,6 +119,7 @@ def update_prototypes(
     gumbel: torch.Tensor,
     cfg: ContrastConfig,
     ignore_cls: int = 0,
+    mesh=None,
 ) -> torch.Tensor:
     """One EMA step of the prototype memory (no gradient).
 
@@ -101,11 +130,14 @@ def update_prototypes(
       label_mask: (B, H, W) bool — which labels supervise (wss mask).
       gumbel: (C, M, K) float32 Gumbel noise, M = cfg.max_pixels_per_class.
       cfg: contrast config (momentum, budget).
+      mesh: ``parallel.mesh.Mesh`` when the inputs are one rank's stripe:
+        one clustering over the global batch's rows, the same on every
+        rank (``gumbel`` must be too).
 
     Returns the new (C, K, D) memory.
     """
     feat_rows, valid, protos = gather_class_rows(
-        prototypes, embedding, label, label_mask, cfg, ignore_cls)
+        prototypes, embedding, label, label_mask, cfg, ignore_cls, mesh)
     with torch.no_grad():
         return proto_tail(feat_rows, valid, protos,
                           gumbel.float().contiguous(),
@@ -148,9 +180,28 @@ def prototype_diagnostics(
     }
 
 
-def update_prototypes_ddp_parity(*args, **kwargs):
-    """The per-replica prototype update with a mean all-reduce
-    (``contrast.ddp_parity_protos``) needs the multi-GPU data path."""
-    raise NotImplementedError(
-        "update_prototypes_ddp_parity is not ported yet: it comes with the "
-        "multi-GPU data path (ROADMAP.md Queue 1 item 15)")
+def update_prototypes_ddp_parity(
+    prototypes: torch.Tensor,
+    embedding: torch.Tensor,
+    label: torch.Tensor,
+    label_mask: torch.Tensor,
+    gumbel: torch.Tensor,
+    cfg: ContrastConfig,
+    mesh,
+    ignore_cls: int = 0,
+) -> torch.Tensor:
+    """The reference's DDP prototype step (``contrast.ddp_parity_protos``).
+
+    Each rank runs the full Sinkhorn/EMA update on its OWN stripe with its
+    own ``gumbel`` (C, M, K) (the JAX package folds the rank into the key),
+    and the memories are averaged over ranks, deliberately WITHOUT a
+    renormalisation after, as the reference's
+    ``dist.all_reduce(protos.div_(world_size))`` follows its l2 normalise.
+    ``mesh`` is required (it names the ranks).
+    """
+    if mesh is None:
+        raise ValueError("update_prototypes_ddp_parity needs the data mesh "
+                         "(parallel.mesh.make_mesh)")
+    local = update_prototypes(prototypes, embedding, label, label_mask,
+                              gumbel, cfg, ignore_cls=ignore_cls)
+    return all_reduce_sum(local, mesh) / mesh.world

@@ -193,13 +193,18 @@ def scatter_labels(proj_idx: torch.Tensor, point_labels: torch.Tensor
         torch.int32)
 
 
-def build_range_features(proj_points: torch.Tensor, proj_range: torch.Tensor
-                         ) -> torch.Tensor:
+def build_range_features(proj_points: torch.Tensor, proj_range: torch.Tensor,
+                         xp=torch) -> torch.Tensor:
     """Stack the 5-channel (range, x, y, z, masked-intensity) feature image.
 
     HWC layout, as the JAX function returns it (the model permutes to NCHW).
     Intensity -1 (empty pixel fill) is zeroed, matching `ne(-1) * intensity`.
+    ``xp=np`` takes numpy arrays and is :func:`build_range_features_np`, as
+    the JAX function's ``xp=np`` (the copied ``data/synthetic.py`` calls
+    it so).
     """
+    if xp is np:
+        return build_range_features_np(proj_points, proj_range)
     intensity = proj_points[..., 3]
     intensity = torch.where(intensity == -1.0, 0.0, intensity)
     return torch.cat(

@@ -10,7 +10,10 @@ Port of the JAX package's ``tools/evaluate.py``. Covers BASELINE config #1
 dirs produced by tools/train.py (--run_dir), and --synthetic for smoke
 runs. Runs on the card unless ``--device cpu`` is given. ``--crf`` refines
 the softmax with the xyz CRF before the argmax, with the untrained kernel
-or ``--crf_kernel`` from tools/train_crf.py.
+or ``--crf_kernel`` from tools/train_crf.py. With ``--multihost`` (one
+process per card under ``torchrun``) each process evaluates its stripe of
+the catalog and the partial confusion matrices are summed, as the JAX
+tool's ``process_allgather`` does; rank 0 prints and writes the summary.
 """
 
 from __future__ import annotations
@@ -87,6 +90,9 @@ def main(argv=None):
                         "(robust seam for wrapping programs)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a card) or 'cpu'")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process per card under torchrun: each "
+                        "evaluates its stripe, the confusions are summed")
     args = p.parse_args(argv)
 
     # pure-argument validation up front, before any dataset/model setup
@@ -103,16 +109,21 @@ def main(argv=None):
         raise SystemExit("--crf_kernel requires --crf")
 
     import numpy as np
+    import torch
 
     from coarse3d_tpu_torch.configs import apply_overrides, load_config, preset
     from coarse3d_tpu_torch.data.pipeline import DataPipeline
     from coarse3d_tpu_torch.data.pipeline import BATCH_KEYS
     from coarse3d_tpu_torch.device import resolve_device
     from coarse3d_tpu_torch.metrics.iou import ConfusionState
+    from coarse3d_tpu_torch.parallel import destroy_mesh, make_mesh
+    from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum
     from coarse3d_tpu_torch.train.setup import build_state
     from coarse3d_tpu_torch.train.step import batch_to_device, make_eval_step
 
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device) if args.multihost else None
+    device = mesh.device if mesh else resolve_device(args.device)
+    rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
 
     cfg = load_config(args.config) if args.config else preset(args.preset)
     if args.overrides:
@@ -146,7 +157,8 @@ def main(argv=None):
     bs = args.batch_size or cfg.train.batch_size_val
     pipe = DataPipeline(ds, cfg, bs, train=False,
                         num_workers=args.num_workers,
-                        pin_memory=device.type == "cuda")
+                        pin_memory=device.type == "cuda",
+                        process_index=rank, process_count=world)
     state = build_state(cfg, device=device, seed=0, steps_per_epoch=1)
 
     if args.weights:
@@ -213,10 +225,15 @@ def main(argv=None):
                     continue
                 seq_id, frame_id = ds.path_info(int(scan_index))
                 writer.write(seq_id, frame_id, preds[bidx][valids[bidx]])
-        if i % 20 == 0:
+        if i % 20 == 0 and rank == 0:
             print(f"batch {i + 1}/{pipe.steps_per_epoch()}")
     if args.save_preds:
         writer.finalize()
+    if mesh is not None:
+        # each process counted its own stripe: the metric is the sum
+        evaluator.conf = all_reduce_sum(torch.from_numpy(evaluator.conf).to(
+            device), mesh).cpu().numpy()
+        destroy_mesh()
 
     mean_iou, class_iou = evaluator.iou()
     mean_acc, _ = evaluator.acc()
@@ -224,7 +241,7 @@ def main(argv=None):
                     [str(i) for i in range(cfg.data.n_classes)])
     class_iou = class_iou.numpy()
     for c, iou in enumerate(class_iou):
-        if c != cfg.train.ignore_cls:
+        if c != cfg.train.ignore_cls and rank == 0:
             print(f"  class {c:02d} {names[c]:20s} IoU {float(iou):.4f}")
     results = {
         "mIoU_3D": round(float(mean_iou), 4),
@@ -233,11 +250,12 @@ def main(argv=None):
         "crf": bool(args.crf),
         "scans": len(ds),
     }
-    print(json.dumps(results))
+    if rank == 0:
+        print(json.dumps(results))
     results["class_iou"] = class_iou.tolist()
     # the exact counts behind the rounded figures (rows = predictions)
     results["confusion"] = evaluator.conf.tolist()
-    if args.summary_json:
+    if args.summary_json and rank == 0:
         # machine-readable seam for wrapping programs: parsing the merged
         # stdout/stderr tail is corruptible by late library warnings, a
         # file is not

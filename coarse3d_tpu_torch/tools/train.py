@@ -3,13 +3,19 @@
 Port of the JAX package's ``tools/train.py``. Behavioral model:
 tasks/weak_segmentation/main.py:178-198 + run.sh: config from YAML or a
 preset, experiment dir stamped with date + id, optional resume. One
-process, one card (``--device cpu`` for the CPU); ``--multihost`` is not
-ported yet and raises. Any ``model.net_type`` / ``model.layers`` /
-``model.stem`` the config or ``--set`` names is built.
+process, one card (``--device cpu`` for the CPU); with ``--multihost``, one
+process per card under ``torchrun``, data-parallel over the global batch
+(``parallel/mesh.py``): each process reads its stripe of the catalog with
+``--batch_size`` scans per step (the global batch is that times the
+number of processes), and only rank 0 logs and writes checkpoints. Any
+``model.net_type`` / ``model.layers`` / ``model.stem`` the config or
+``--set`` names is built.
 
   python -m coarse3d_tpu_torch.tools.train --preset semantic_kitti \
       --pcd_root .../sequences --weak_root .../weak --id v1.0
   python -m coarse3d_tpu_torch.tools.train --synthetic 32 --epochs 2   # smoke
+  torchrun --nproc_per_node=4 -m coarse3d_tpu_torch.tools.train \
+      --multihost --preset semantic_kitti ...                    # 4 cards
 """
 
 from __future__ import annotations
@@ -74,7 +80,9 @@ def main(argv=None):
                         "'s2d' (2x2 space-to-depth) or 's2d_w' (width-only "
                         "1x2, full row resolution)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process training (not ported yet: raises)")
+                   help="one process per card under torchrun: data-parallel "
+                        "training over the global batch (NCCL on cards, "
+                        "gloo with --device cpu)")
     p.add_argument("--profile_steps", type=int, nargs=2, default=None,
                    metavar=("FIRST", "LAST"),
                    help="torch.profiler trace window within epoch 0")
@@ -82,21 +90,29 @@ def main(argv=None):
                    help="'cuda' (default; fails without a card) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP.md Queue 1 item 15)")
     if args.pretrained and args.resume:
         raise SystemExit(
             "cannot use pretrained weights and checkpoint resume together "
             "(reference trainer.py:71-73)")
 
+    from coarse3d_tpu_torch.device import resolve_device
+    from coarse3d_tpu_torch.parallel import destroy_mesh, make_mesh
+
+    mesh = make_mesh(args.device) if args.multihost else None
+    try:
+        return _run(args, mesh, mesh.device if mesh else resolve_device(
+            args.device))
+    finally:
+        if mesh is not None:
+            destroy_mesh()
+
+
+def _run(args, mesh, device):
     from coarse3d_tpu_torch.configs import apply_overrides, load_config, preset
     from coarse3d_tpu_torch.data.pipeline import DataPipeline
-    from coarse3d_tpu_torch.device import resolve_device
     from coarse3d_tpu_torch.train.trainer import Trainer
     from coarse3d_tpu_torch.utils import Recorder
 
-    device = resolve_device(args.device)
     cfg = load_config(args.config) if args.config else preset(args.preset)
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
@@ -150,26 +166,31 @@ def main(argv=None):
         train_ds = build_dataset(cfg, "train")
         val_ds = build_dataset(cfg, "val")
 
+    rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
     recorder = Recorder(
         cfg.save_path, settings=cfg,
         snapshot_code_root=os.path.dirname(os.path.dirname(
             os.path.dirname(os.path.abspath(__file__)))),
-        enabled=True)
-    recorder.logger.info(f"device: {device}")
+        enabled=rank == 0)
+    recorder.logger.info(f"device: {device}, rank {rank} of {world}")
     recorder.logger.info(f"save_path: {cfg.save_path}")
 
     # batches are stacked into page-locked memory for a card, so their
-    # copies run beside the previous step (4 scans per GPU in run.sh)
+    # copies run beside the previous step (4 scans per GPU in run.sh);
+    # each process reads its stripe of the catalog
     pin = device.type == "cuda"
+    stripe = dict(process_index=rank, process_count=world)
     train_pipe = DataPipeline(
         train_ds, cfg, cfg.train.batch_size_train, train=True,
-        seed=cfg.train.seed, num_workers=args.num_workers, pin_memory=pin)
+        seed=cfg.train.seed, num_workers=args.num_workers, pin_memory=pin,
+        **stripe)
     val_pipe = DataPipeline(
         val_ds, cfg, cfg.train.batch_size_val, train=False,
-        seed=cfg.train.seed, num_workers=args.num_workers, pin_memory=pin)
+        seed=cfg.train.seed, num_workers=args.num_workers, pin_memory=pin,
+        **stripe)
 
     trainer = Trainer(cfg, train_pipe, val_pipe, recorder=recorder,
-                      device=device)
+                      device=device, mesh=mesh)
     trainer.install_signal_handlers()
     if args.profile_steps:
         trainer.profile_steps = tuple(args.profile_steps)

@@ -7,7 +7,11 @@ init the refinement measurably hurts (PARITY.md CRF entry). This tool
 freezes a trained segmentation checkpoint and fits ONLY the compatibility
 matrix by cross-entropy of the CRF-refined probabilities against the weak
 training labels, the only supervision the weak-label setting legitimately
-has. One process, one device (``--device cpu`` for the CPU).
+has. One process, one device (``--device cpu`` for the CPU); with
+``--multihost``, one process per card under ``torchrun``, the batch
+sharded as in the JAX tool: each process reads its stripe, the weak-CE is
+the global batch's (its denominators summed over ranks) and the kernel's
+gradient is summed, so every rank fits the same kernel; rank 0 writes it.
 
   python -m coarse3d_tpu_torch.tools.train_crf --run_dir RUN \
       --ckpt best_3DIOU --synthetic 64 --synthetic_task hard ... \
@@ -55,6 +59,9 @@ def main(argv=None):
     p.add_argument("--out", required=True, help="output .npz kernel path")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a card) or 'cpu'")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process per card under torchrun: the batch "
+                        "is sharded over the processes")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -63,12 +70,16 @@ def main(argv=None):
     from coarse3d_tpu_torch.configs import apply_overrides, preset
     from coarse3d_tpu_torch.data.pipeline import BATCH_KEYS, DataPipeline
     from coarse3d_tpu_torch.device import resolve_device
+    from coarse3d_tpu_torch.parallel import destroy_mesh, make_mesh
+    from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum
     from coarse3d_tpu_torch.postproc.crf import crf_refine, init_compat_kernel
     from coarse3d_tpu_torch.train.checkpoint import restore_from_run_dir
     from coarse3d_tpu_torch.train.setup import build_state
     from coarse3d_tpu_torch.train.step import _prepare_inputs, batch_to_device
 
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device) if args.multihost else None
+    device = mesh.device if mesh else resolve_device(args.device)
+    rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
     cfg = preset(args.preset)
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
@@ -97,7 +108,12 @@ def main(argv=None):
     # and clean projections keep the xyz messages consistent across epochs
     pipe = DataPipeline(ds, cfg, bs, train=False,
                         num_workers=args.num_workers,
-                        pin_memory=device.type == "cuda")
+                        pin_memory=device.type == "cuda",
+                        process_index=rank, process_count=world)
+    if len(ds) < world:
+        raise ValueError(f"{len(ds)} scans cannot feed {world} processes")
+    # every rank takes as many steps as the longest stripe (rank 0's)
+    n_steps = -(-(-(-len(ds) // world)) // bs)
 
     state = build_state(cfg, device=device, seed=0, steps_per_epoch=1)
     state = restore_from_run_dir(state, args.run_dir, args.ckpt)
@@ -127,37 +143,57 @@ def main(argv=None):
             # kernel objective, so a skewed point share cannot teach the
             # kernel to smooth rare classes away (--class_balance help)
             n_cls = cfg.data.n_classes
-            counts = torch.zeros(n_cls, device=m.device).index_add_(
-                0, label.reshape(-1), m.reshape(-1))
+            counts = all_reduce_sum(torch.zeros(
+                n_cls, device=m.device).index_add_(
+                0, label.reshape(-1), m.reshape(-1)), mesh)
             present = counts > 0
             w_cls = torch.where(present, 1.0 / counts.clamp_min(1.0), 0.0)
             w_cls = w_cls / present.sum().clamp_min(1)
             m = m * w_cls[label]
-            return -(picked * m).sum() / m.sum().clamp_min(1e-12)
-        return -(picked * m).sum() / m.sum().clamp_min(1.0)
+            return -(picked * m).sum() / all_reduce_sum(
+                m.sum(), mesh).clamp_min(1e-12)
+        # with a mesh, this rank's share of the global batch's weak-CE
+        return -(picked * m).sum() / all_reduce_sum(
+            m.sum(), mesh).clamp_min(1.0)
+
+    def padded_epoch(epoch):
+        """The rank's batches, then (a shorter stripe) its last batch with
+        no weak label, which adds nothing but joins the collectives."""
+        last = None
+        for last in pipe.epoch(epoch):
+            yield last
+        for _ in range(n_steps - pipe.steps_per_epoch()):
+            yield dict(last, train_label=np.zeros_like(last["train_label"]))
 
     history = []
     for epoch in range(args.epochs):
         losses = []
-        for host_batch in pipe.epoch(epoch):
+        for host_batch in padded_epoch(epoch):
             batch = batch_to_device(
                 {k: host_batch[k] for k in BATCH_KEYS}, device)
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(kernel, batch)
             loss.backward()
+            if mesh is not None:
+                kernel.grad = all_reduce_sum(kernel.grad, mesh)
             opt.step()
-            losses.append(loss.detach())
+            losses.append(all_reduce_sum(loss.detach(), mesh))
         mean = float(torch.stack(losses).mean())
         history.append(round(mean, 5))
-        print(f"epoch {epoch + 1}/{args.epochs} weak-CE {mean:.5f}",
-              flush=True)
+        if rank == 0:
+            print(f"epoch {epoch + 1}/{args.epochs} weak-CE {mean:.5f}",
+                  flush=True)
+    if mesh is not None:
+        destroy_mesh()
 
-    out_dir = os.path.dirname(args.out)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
     fitted = kernel.detach().cpu().numpy()
-    np.savez(args.out, kernel=fitted, history=np.asarray(history, np.float32))
-    print(json.dumps({"out": args.out, "history": history}))
+    if rank == 0:
+        out_dir = os.path.dirname(args.out)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        np.savez(args.out, kernel=fitted,
+                 history=np.asarray(history, np.float32))
+        print(json.dumps({"out": args.out, "history": history}))
     return {"kernel": fitted, "history": history}
 
 

@@ -68,12 +68,18 @@ def _load_into(state: TrainState, path: str) -> int:
 
 
 class CheckpointManager:
-    """Rolling + best-metric checkpoints under <save_path>/checkpoint."""
+    """Rolling + best-metric checkpoints under <save_path>/checkpoint.
 
-    def __init__(self, save_path: str, max_to_keep: int = 2):
+    ``write=False`` keeps the bookkeeping (which metrics improved) and
+    writes no file: the ranks of a multi-GPU run other than 0 hold the
+    same state as rank 0, which alone writes it."""
+
+    def __init__(self, save_path: str, max_to_keep: int = 2,
+                 write: bool = True):
         self.root = os.path.abspath(os.path.join(save_path, "checkpoint"))
         os.makedirs(self.root, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.write = write
         self._best: dict[str, float] = {}
 
     def _rolling_epochs(self) -> list[int]:
@@ -84,6 +90,8 @@ class CheckpointManager:
         return os.path.join(self.root, f"epoch_{epoch:04d}.pth")
 
     def save_rolling(self, state: TrainState, epoch: int) -> None:
+        if not self.write:
+            return
         _save(self._rolling_path(epoch), _to_saveable(state, epoch))
         for old in self._rolling_epochs()[:-self.max_to_keep]:
             os.remove(self._rolling_path(old))
@@ -97,10 +105,12 @@ class CheckpointManager:
         for key, value in metrics.items():
             if value > self._best.get(key, float("-inf")):
                 self._best[key] = value
+                improved.append(key)
+                if not self.write:
+                    continue
                 if payload is None:
                     payload = _to_saveable(state, epoch)
                 _save(os.path.join(self.root, f"best_{key}.pth"), payload)
-                improved.append(key)
         return improved
 
     def latest_epoch(self) -> int | None:

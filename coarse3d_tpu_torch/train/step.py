@@ -20,6 +20,26 @@ Differences of form, not of result:
 
 Nothing inside the step reads a value back to the host: no ``.item()``, no
 Python branch on a tensor.
+
+Across GPUs (``mesh``, ``parallel/mesh.py``; one process per card) a step
+on each rank's stripe equals one step on the global batch, the ranks'
+stripes concatenated in rank order, as the JAX package's sharded step
+does:
+- every rank draws the global batch's noise from its generator (alike on
+  every rank) and takes its stripe: the selection Gumbel and the anchor
+  uniforms by image, the dropout masks by image (``models/blocks.py``),
+  the prototype Gumbel whole (in ``ddp_parity_protos`` mode, one (C, M, K)
+  draw per rank, the rank's own);
+- BatchNorm uses the global batch's statistics (``models/blocks.py``);
+- each rank's loss is its share of the global loss: the focal and
+  contrast terms sum its own pixels and anchors over the global count,
+  and the Lovász term, computed by every rank on the gathered rows, comes
+  divided by the world size. Gradients are then SUMMED over ranks (one
+  all-reduce of all of them), which gives the global gradient; the
+  reported losses are the shares summed;
+- the prototype memory is one clustering over the global batch's rows
+  (or the reference's per-rank update and mean), the same on every rank;
+- the confusion matrix is summed over ranks.
 """
 
 from __future__ import annotations
@@ -42,9 +62,11 @@ from coarse3d_tpu_torch.metrics.iou import confusion_matrix
 from coarse3d_tpu_torch.models.prototypes import (
     prototype_diagnostics,
     update_prototypes,
+    update_prototypes_ddp_parity,
 )
 from coarse3d_tpu_torch.ops.knn import knn_postprocess
 from coarse3d_tpu_torch.ops.projection import normalize_features
+from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum, stripe
 from coarse3d_tpu_torch.postproc.crf import crf_refine, init_compat_kernel
 from coarse3d_tpu_torch.train.state import TrainState
 
@@ -64,16 +86,31 @@ def _gumbel(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def draw_noise(generator: torch.Generator, cfg: ExperimentConfig, b: int,
-               h: int, w: int) -> dict[str, torch.Tensor]:
-    """The contrast step's noise, drawn on the generator's device."""
+               h: int, w: int, ranks: int | None = None
+               ) -> dict[str, torch.Tensor]:
+    """The contrast step's noise for a batch of ``b`` images, drawn on the
+    generator's device. ``ranks`` (``ddp_parity_protos`` mode) gives the
+    prototype Gumbel a leading axis, one draw per rank."""
     c = cfg.data.n_classes
+    proto = (c, cfg.contrast.max_pixels_per_class,
+             cfg.contrast.sub_proto_size)
     return {
         "select": _gumbel((b * h * w,), generator),
         "anchor": torch.rand((b, c, cfg.contrast.num_anchor),
                              generator=generator, device=generator.device),
-        "proto": _gumbel((c, cfg.contrast.max_pixels_per_class,
-                          cfg.contrast.sub_proto_size), generator),
+        "proto": _gumbel(proto if ranks is None else (ranks,) + proto,
+                         generator),
     }
+
+
+def _sum_gradients(params: list[torch.Tensor], mesh) -> None:
+    """Sum every parameter's gradient over ranks with one all-reduce."""
+    if mesh is None or mesh.world == 1:
+        return
+    grads = [p.grad for p in params]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def _prepare_inputs(batch: dict[str, torch.Tensor], cfg: ExperimentConfig):
@@ -97,13 +134,21 @@ def _metrics_3d(probs: torch.Tensor, batch, cfg: ExperimentConfig
                             cfg.data.n_classes, valid=batch["point_valid"])
 
 
-def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
+def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool,
+                    mesh=None):
     """Build the train step. ``with_contrast`` is the analog of the
-    reference's ``epoch >= contrast_warmup`` gate (trainer.py:532-541)."""
-    if with_contrast and cfg.contrast.ddp_parity_protos:
-        raise NotImplementedError(
-            "contrast.ddp_parity_protos is not ported yet (ROADMAP.md Queue 1 "
-            "item 15)")
+    reference's ``epoch >= contrast_warmup`` gate (trainer.py:532-541).
+    ``mesh`` (``parallel.mesh.make_mesh``) makes it one rank's part of a
+    data-parallel step over the global batch (module docstring); the state
+    it is given must come from ``parallel.mesh.replicate_to_mesh`` on the
+    same mesh, which sets the mesh on the model's BatchNorm and dropout.
+    The ``ddp_parity_protos`` mode needs a mesh, as in the JAX package."""
+    ddp_parity = with_contrast and cfg.contrast.ddp_parity_protos
+    if ddp_parity and mesh is None:
+        raise ValueError(
+            "contrast.ddp_parity_protos needs the data mesh: pass "
+            "make_train_step(..., mesh=...)")
+    world = 1 if mesh is None else mesh.world
     alpha_np = np.asarray(alpha, np.float32)
     ignore = cfg.train.ignore_cls
     alpha_on: dict[torch.device, torch.Tensor] = {}  # made once per device
@@ -116,10 +161,16 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
          eval_mask) = _prepare_inputs(batch, cfg)
         b, h, w = train_label.shape
         if with_contrast:
-            if noise is None:
-                noise = draw_noise(state.generator, cfg, b, h, w)
+            if noise is None:             # the global batch's, alike on
+                noise = draw_noise(       # every rank
+                    state.generator, cfg, b * world, h, w,
+                    ranks=world if ddp_parity else None)
             noise = {k: torch.as_tensor(v).to(dev, torch.float32)
                      for k, v in noise.items()}
+            noise["select"] = stripe(noise["select"], mesh)
+            noise["anchor"] = stripe(noise["anchor"], mesh)
+            if ddp_parity:
+                noise["proto"] = noise["proto"][mesh.rank]
         if dev not in alpha_on:
             alpha_on[dev] = torch.from_numpy(alpha_np).to(dev)
         alpha_t = alpha_on[dev]
@@ -135,18 +186,19 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
         if cfg.train.loss_w_ce_2d > 0:
             losses["focal"] = focal_softmax_loss(
                 probs, train_label, alpha_t, wss_mask,
-                gamma=cfg.train.focal_gamma)
+                gamma=cfg.train.focal_gamma, mesh=mesh)
             total = total + cfg.train.loss_w_ce_2d * losses["focal"]
         if cfg.train.loss_w_lov_2d > 0:
             losses["lovasz"] = lovasz_softmax_loss(
                 probs, train_label, ignore=ignore,
-                budget=cfg.train.lovasz_budget or None)
+                budget=cfg.train.lovasz_budget or None, mesh=mesh)
             total = total + cfg.train.loss_w_lov_2d * losses["lovasz"]
-            if cfg.train.lovasz_budget:
-                # not a loss: truncation sentinel
-                losses["lovasz_overflow"] = lovasz_budget_overflow(
-                    train_label, ignore,
-                    cfg.train.lovasz_budget).to(torch.float32)
+        overflow = None
+        if cfg.train.loss_w_lov_2d > 0 and cfg.train.lovasz_budget:
+            # not a loss: truncation sentinel (global, not a share)
+            overflow = lovasz_budget_overflow(
+                train_label, ignore, cfg.train.lovasz_budget,
+                mesh=mesh).to(torch.float32)
 
         embedding = None
         if with_contrast:
@@ -155,13 +207,14 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
             if cfg.contrast.entropy_selection:
                 pseudo_label, pseudo_mask = entropy_based_selection(
                     probs.detach(), wss_mask, eval_mask, train_label,
-                    select_ratio, noise["select"], ignore_cls=ignore)
+                    select_ratio, noise["select"], ignore_cls=ignore,
+                    global_batch=b * world)
             else:
                 pseudo_label, pseudo_mask = train_label, wss_mask
             losses["contrast"] = contrast_mem_loss(
                 embedding, probs.detach(), pseudo_label, pseudo_mask,
                 state.prototypes.detach(), noise["anchor"], cfg.contrast,
-                ignore_cls=ignore)
+                ignore_cls=ignore, mesh=mesh)
             total = total + cfg.contrast.loss_w_contrast * losses["contrast"]
         losses["total"] = total
 
@@ -169,24 +222,37 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool):
         # optax updates every parameter at every step (its count, moment
         # decay and weight decay are global); torch's AdamW skips a
         # parameter whose grad is None (the projector in a warmup step)
-        for p in model.parameters():
+        params = list(model.parameters())
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        _sum_gradients(params, mesh)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
 
-        metrics: dict[str, Any] = {
-            "losses": {k: v.detach() for k, v in losses.items()}}
+        names = list(losses)
+        shares = torch.stack([losses[k].detach() for k in names])
+        reported = dict(zip(names, all_reduce_sum(shares, mesh).unbind()))
+        if overflow is not None:
+            reported["lovasz_overflow"] = overflow
+        metrics: dict[str, Any] = {"losses": reported}
         old_protos = state.prototypes
         if with_contrast and cfg.contrast.use_prototype:
-            state.prototypes = update_prototypes(
-                old_protos, embedding.detach(), train_label, wss_mask,
-                noise["proto"], cfg.contrast, ignore_cls=ignore)
+            if ddp_parity:
+                state.prototypes = update_prototypes_ddp_parity(
+                    old_protos, embedding.detach(), train_label, wss_mask,
+                    noise["proto"], cfg.contrast, mesh, ignore_cls=ignore)
+            else:
+                state.prototypes = update_prototypes(
+                    old_protos, embedding.detach(), train_label, wss_mask,
+                    noise["proto"], cfg.contrast, ignore_cls=ignore,
+                    mesh=mesh)
         if with_contrast:
             metrics["diag"] = prototype_diagnostics(
                 old_protos, state.prototypes, ignore_cls=ignore)
-        metrics["confusion"] = _metrics_3d(probs.detach(), batch, cfg)
+        metrics["confusion"] = all_reduce_sum(
+            _metrics_3d(probs.detach(), batch, cfg), mesh)
         return state, metrics
 
     return train_step

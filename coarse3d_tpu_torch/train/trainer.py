@@ -11,8 +11,15 @@ contrast) that enqueue their kernels and return; batches stream from the
 host pipeline in page-locked memory and are copied asynchronously;
 confusion matrices, loss sums and prototype diagnostics accumulate on the
 device, and the host reads loss values only at logging intervals
-(``i % 10 == 0``) and once at epoch end. One card: the mesh and the
-multi-process run of the JAX Trainer are not ported yet.
+(``i % 10 == 0``) and once at epoch end.
+
+Across GPUs (``mesh``, the analog of the JAX Trainer's): one process per
+card, each with its pipeline's stripe of every global batch. The steps
+reduce over the global batch (``train/step.py``), so the training losses
+and confusion are global already; each rank validates its own stripe and
+the partial confusions are summed at the epoch's end. Only rank 0 writes
+checkpoints (the recorder is switched off elsewhere by the caller,
+``tools/train.py``).
 """
 
 from __future__ import annotations
@@ -23,11 +30,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from coarse3d_tpu_torch.configs.config import ExperimentConfig
 from coarse3d_tpu_torch.data.pipeline import BATCH_KEYS
 from coarse3d_tpu_torch.device import resolve_device
 from coarse3d_tpu_torch.metrics.iou import ConfusionState
+from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum, replicate_to_mesh
 from coarse3d_tpu_torch.train.checkpoint import CheckpointManager
 from coarse3d_tpu_torch.train.setup import build_alpha, build_state
 from coarse3d_tpu_torch.train.step import (
@@ -54,28 +63,52 @@ class Trainer:
         val_pipe,
         recorder: Recorder | None = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
+        """``mesh`` (``parallel.mesh.make_mesh``) trains data-parallel on
+        its device, which then stands in for ``device``; the pipelines
+        must stripe by its rank and world size, the training one giving
+        every rank the same number of steps."""
         self.cfg = cfg
         self.train_pipe = train_pipe
         self.val_pipe = val_pipe
         self.recorder = recorder or Recorder(cfg.save_path, enabled=False)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        self.is_main = mesh is None or mesh.is_main
         self.steps_per_epoch = max(train_pipe.steps_per_epoch(), 1)
+        if mesh is not None and mesh.world > 1:
+            # a rank with one step more would wait in that step's
+            # collectives for ranks that never enter them, and the
+            # learning-rate schedule is built from this count
+            span = torch.tensor([self.steps_per_epoch, -self.steps_per_epoch],
+                                device=self.device)
+            dist.all_reduce(span, dist.ReduceOp.MAX)
+            if int(span[0]) != -int(span[1]):
+                raise ValueError(
+                    f"the ranks' training pipelines give {-int(span[1])} to "
+                    f"{int(span[0])} steps an epoch: every rank must take "
+                    f"the same number (DataPipeline's stripes do)")
 
         self.state = build_state(cfg, device=self.device,
                                  seed=cfg.train.seed,
                                  steps_per_epoch=self.steps_per_epoch)
+        if mesh is not None:
+            self.state = replicate_to_mesh(self.state, mesh)
 
         alpha = build_alpha(cfg)
-        self._step_warmup = make_train_step(cfg, alpha, with_contrast=False)
-        self._step_contrast = make_train_step(cfg, alpha, with_contrast=True)
+        self._step_warmup = make_train_step(cfg, alpha, with_contrast=False,
+                                            mesh=mesh)
+        self._step_contrast = make_train_step(cfg, alpha, with_contrast=True,
+                                              mesh=mesh)
         self._eval_step = make_eval_step(cfg, use_knn=cfg.train.val_use_knn)
         self._ratio = select_ratio_schedule(cfg.train.n_epochs)
 
         self.evaluator = ConfusionState(cfg.data.n_classes,
                                         ignore=(cfg.train.ignore_cls,))
         self.remain_time = RemainTime(cfg.train.n_epochs)
-        self.ckpt = CheckpointManager(cfg.save_path)
+        self.ckpt = CheckpointManager(cfg.save_path, write=self.is_main)
         self.start_epoch = 0
         self.resumed: dict | None = None   # what maybe_resume restored
         # torch.profiler trace window: steps [first, last) of the training
@@ -177,12 +210,15 @@ class Trainer:
         profiling = (self.profile_steps is not None and train
                      and epoch == self.profile_epoch)
         for i, host_batch in enumerate(pipe.epoch(epoch)):
-            data_time = time.time() - t_start
             if profiling:
                 prof = self._profile_window(prof, i)
-            t_proc = time.time()
+            # DT includes the copy to the card (with a mesh, the rank's
+            # stripe to its card: parallel.mesh.shard_batch), as the JAX
+            # Trainer's includes shard_batch
             batch = batch_to_device(
                 {k: host_batch[k] for k in BATCH_KEYS}, self.device)
+            t_proc = time.time()
+            data_time = t_proc - t_start
 
             if train:
                 self.state, metrics = step_fn(self.state, batch, ratio)
@@ -227,6 +263,14 @@ class Trainer:
                     f"PT[{proc_time:.3f}] {loss_str} RT[{eta}]")
         if prof is not None:        # the epoch ended inside the window
             self._profile_window(prof, self.profile_steps[1])
+        if not train and self.mesh is not None and self.mesh.world > 1:
+            # each rank validated its own stripe (possibly none of it);
+            # zeros of the eval step's confusion dtype (metrics/iou.py)
+            if device_conf is None:
+                n = self.cfg.data.n_classes
+                device_conf = torch.zeros((n, n), dtype=torch.int32,
+                                          device=self.device)
+            device_conf = all_reduce_sum(device_conf, self.mesh)
         if device_conf is not None:
             self.evaluator.add(device_conf)
         # exact epoch-mean losses from the device accumulators (one fetch),

@@ -8,9 +8,14 @@ seeds give exactly equal outputs, with two exceptions stated where they
 apply: native against numpy projection as ``tests/test_native.py`` holds it
 (depth rtol 1e-6, winners agree on > 0.99 of pixels), and recorder
 timestamps, which are dropped before comparing.
+
+Every ``build_sample`` and ``DataPipeline`` comparison runs on both host
+paths, the same one on both sides (fixture ``host_path``): the native
+libraries, and numpy with ``COARSE3D_NATIVE=0``.
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -213,9 +218,54 @@ def test_nuscenes_catalog_matches(tmp_path):
 
 # -- native host preprocessing -----------------------------------------------------
 
+def native_pair_available() -> bool:
+    """Both packages' native libraries load, retrying the JAX package's.
+
+    The JAX package compiles its library under one temporary name shared
+    by every process (``coarse3d_tpu/native/__init__.py``). When several
+    test workers build at once, the first rename wins and the others find
+    their temporary file gone: they cache "no library" for the whole
+    process, and their ``build_sample`` projects with numpy while the
+    port's projects natively. Once the winner's library exists beside the
+    source, a retry loads it.
+    """
+    if not jnative.available():
+        with open(jnative._SRC, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        if os.path.exists(os.path.join(os.path.dirname(jnative._SRC),
+                                       f"_preprocess_{digest}.so")):
+            jnative._TRIED = False
+    return tnative.available() and jnative.available()
+
+
+def force_numpy_host_path(mp: pytest.MonkeyPatch) -> None:
+    """Switch both native libraries off through ``COARSE3D_NATIVE=0``."""
+    for mod in (tnative, jnative):
+        mp.setattr(mod, "_TRIED", False)
+        mp.setattr(mod, "_LIB", None)
+    mp.setenv("COARSE3D_NATIVE", "0")
+
+
 def _need_native():
-    if not (tnative.available() and jnative.available()):
+    if not native_pair_available():
         pytest.skip("no g++ / native build failed")
+
+
+@pytest.fixture(scope="module")
+def native_built():
+    return native_pair_available()
+
+
+@pytest.fixture(params=["native", "numpy"])
+def host_path(request, native_built, monkeypatch):
+    """Run a comparison on each host path, the same one on both sides:
+    the native libraries, or numpy with both switched off."""
+    if request.param == "native":
+        if not native_built:
+            pytest.skip("no g++ / native build failed")
+    else:
+        force_numpy_host_path(monkeypatch)
+    return request.param
 
 
 def test_native_source_is_a_copy_and_builds_into_build_dir():
@@ -283,10 +333,7 @@ def test_native_matches_numpy_projection():
 def test_native_gate(monkeypatch):
     """COARSE3D_NATIVE=0 switches the library off; build_sample then takes
     the numpy path and still equals the original's."""
-    for mod in (tnative, jnative):
-        monkeypatch.setattr(mod, "_TRIED", False)
-        monkeypatch.setattr(mod, "_LIB", None)
-    monkeypatch.setenv("COARSE3D_NATIVE", "0")
+    force_numpy_host_path(monkeypatch)
     assert not tnative.available() and not jnative.available()
     sensor = preset("tiny").sensor
     scan = tsyn.synthetic_scan(np.random.default_rng(9), 2000, 8, sensor, 0.01)
@@ -311,7 +358,7 @@ def test_numpy_features_match():
 
 
 @pytest.mark.parametrize("train", [True, False])
-def test_build_sample_kitti_path_matches(train):
+def test_build_sample_kitti_path_matches(train, host_path):
     cfg_t, cfg_j = preset("tiny"), jax_preset("tiny")
     scan = tsyn.synthetic_scan(np.random.default_rng(11), 3000, 8,
                                cfg_t.sensor, weak_ratio=0.01)
@@ -324,7 +371,7 @@ def test_build_sample_kitti_path_matches(train):
     assert (got["train_label"] > 0).any()
 
 
-def test_build_sample_weak_fallback_matches():
+def test_build_sample_weak_fallback_matches(host_path):
     """Every weak point hidden behind a nearer point: the sample is
     re-projected with the weak points forced nearest."""
     sensor = preset("tiny").sensor
@@ -347,7 +394,7 @@ def test_build_sample_weak_fallback_matches():
     assert (got["train_label"] > 0).sum() > 0           # the fallback ran
 
 
-def test_build_sample_poss_tag_path_matches():
+def test_build_sample_poss_tag_path_matches(host_path):
     sensor = preset("poss").sensor
     rng = np.random.default_rng(13)
     n = 5000
@@ -371,7 +418,7 @@ def test_build_sample_poss_tag_path_matches():
 
 
 @pytest.mark.parametrize("train", [True, False])
-def test_pipeline_epoch_matches(train):
+def test_pipeline_epoch_matches(train, host_path):
     """The same batches in the same order: shuffled with drop_last in
     training, in catalog order with a padded tail in evaluation."""
     cfg_t, cfg_j = preset("tiny"), jax_preset("tiny")
@@ -403,6 +450,42 @@ def test_pipeline_epoch_matches(train):
                                  process_index=i, process_count=2)
               for i in (0, 1)]
     assert [len(h._epoch_indices(0)) for h in halves] == [4, 3]
+
+
+class _Catalog:
+    """A catalog that only has a length."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+
+@pytest.mark.parametrize("n_scans, batch, world", [
+    (7, 2, 2), (19130, 4, 8), (9, 1, 4), (8, 2, 1)])
+def test_training_stripes_give_every_process_the_same_steps(n_scans, batch,
+                                                            world):
+    """Every process takes the same number of training steps, each epoch,
+    from disjoint stripes of one shuffle (SemanticKITTI's 19130 training
+    scans over 8 cards at 4 scans a card: 597 steps on every rank); one
+    process sees the JAX pipeline's order."""
+    cfg_t, cfg_j = preset("tiny"), jax_preset("tiny")
+    pipes = [tpipe.DataPipeline(_Catalog(n_scans), cfg_t, batch, train=True,
+                                seed=5, process_index=r, process_count=world)
+             for r in range(world)]
+    want_steps = n_scans // world // batch
+    for epoch in (0, 1):
+        stripes = [p._epoch_indices(epoch) for p in pipes]
+        assert [len(s) for s in stripes] == [want_steps * batch] * world
+        flat = np.concatenate(stripes)
+        assert len(np.unique(flat)) == len(flat)
+    assert [p.steps_per_epoch() for p in pipes] == [want_steps] * world
+    if world == 1:
+        want = jpipe.DataPipeline(_Catalog(n_scans), cfg_j, batch, seed=5,
+                                  process_index=0, process_count=1)
+        np.testing.assert_array_equal(pipes[0]._epoch_indices(1),
+                                      want._epoch_indices(1))
 
 
 def test_pipeline_worker_error_reaches_the_consumer():

@@ -222,7 +222,8 @@ def _module_ast(package, rel):
 
 
 @pytest.mark.parametrize("rel", [
-    "data/readers.py", "data/datasets.py",
+    "data/readers.py", "data/datasets.py", "data/synthetic.py",
+    "data/camera.py",
     "utils/__init__.py", "utils/meters.py", "utils/recorder.py",
     "visualizer/__init__.py", "visualizer/vis.py", "eval/submission.py",
 ])
@@ -234,9 +235,6 @@ def test_copied_modules_equal_their_originals(rel):
 
 
 @pytest.mark.parametrize("rel, names", [
-    ("data/synthetic.py", ["SyntheticDataset", "texture_periods",
-                           "synthetic_hard_scan", "SyntheticHardDataset",
-                           "hard_task_kwargs"]),
     ("data/pipeline.py", ["_tag_pixels", "_pad_tail_batch"]),
     # augment_pointcloud casts before its rotation product (the GIL): its
     # outputs are held equal in tests/test_torch_data.py instead
@@ -296,14 +294,17 @@ def test_converter_entry_tables_match_jax(net, layers):
 
 
 def test_new_modules_are_imported_by_the_walk():
-    """The modules of the other families and the post-processing are part
-    of the package that test_import_loads_no_jax walks."""
+    """The modules of the other families, the post-processing, the
+    multi-GPU data path and the small copies are part of the package that
+    test_import_loads_no_jax walks."""
     import pkgutil
 
     names = {m.name for m in pkgutil.walk_packages(
         coarse3d_tpu_torch.__path__, coarse3d_tpu_torch.__name__ + ".")}
     for mod in ("models.rangenet", "models.squeezesegv3", "postproc",
-                "postproc.crf", "postproc.border", "tools.train_crf"):
+                "postproc.crf", "postproc.border", "tools.train_crf",
+                "parallel", "parallel.mesh", "data.camera",
+                "utils.tensor_ops"):
         assert f"coarse3d_tpu_torch.{mod}" in names, mod
 
 

@@ -341,6 +341,11 @@ def test_prototype_diagnostics(data):
                                    atol=1e-6, err_msg=k)
 
 
-def test_ddp_parity_update_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tproto.update_prototypes_ddp_parity()
+def test_ddp_parity_update_raises(data):
+    """Without the data mesh there are no ranks to average over (the mode
+    itself is held against JAX in tests/test_torch_parallel.py)."""
+    _, ccfg = _cfgs(0.9)
+    with pytest.raises(ValueError, match="mesh"):
+        tproto.update_prototypes_ddp_parity(
+            _t(data["protos"]), _t(data["emb"]), _t(data["lbl"]),
+            _t(data["msk"]), torch.zeros(C, M, K), ccfg, None)

@@ -298,13 +298,14 @@ def test_eval_step_matches(run, use_knn):
 
 def test_eval_step_crf_and_ddp_parity_raise(run):
     """use_crf builds and runs (tests/test_torch_postproc.py holds it against
-    JAX); contrast.ddp_parity_protos still waits for multi-GPU."""
+    JAX); contrast.ddp_parity_protos needs the data mesh, as in JAX
+    (tests/test_torch_parallel.py runs it)."""
     cfg = preset("tiny")
     out = tstep.make_eval_step(cfg, use_crf=True)(run["tstate"], run["tb"])
     assert int(out["confusion"].sum()) == int(run["tb"]["point_valid"].sum())
     ddp = dataclasses.replace(cfg, contrast=dataclasses.replace(
         cfg.contrast, ddp_parity_protos=True))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="mesh"):
         tstep.make_train_step(ddp, tsetup.build_alpha(ddp), with_contrast=True)
 
 

@@ -241,7 +241,19 @@ def test_profile_window_writes_a_trace(tmp_path):
 @pytest.fixture(scope="module")
 def against_jax(tmp_path_factory):
     """Both Trainers on the same catalogs, dropout 0, no augmentation, the
-    port carrying the JAX Trainer's initial state."""
+    port carrying the JAX Trainer's initial state. Both pipelines project
+    on the same host path: natively, or with numpy when either native
+    library is missing (tests/test_torch_data.py:native_pair_available)."""
+    from tests.test_torch_data import (force_numpy_host_path,
+                                       native_pair_available)
+
+    with pytest.MonkeyPatch.context() as mp:
+        if not native_pair_available():
+            force_numpy_host_path(mp)
+        yield _against_jax(tmp_path_factory)
+
+
+def _against_jax(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax")
 
     def plain(cfg):
@@ -395,7 +407,8 @@ def test_train_cli_pretrained_and_val_only(cli_run, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, error", [
-    (["--multihost"], NotImplementedError),
+    # --multihost without torchrun's environment: no process group
+    (["--multihost"], RuntimeError),
     # tiny is 16x64: the 2x2 stem needs 32 rows, the JAX package's own error
     (["--stem", "s2d"], ValueError),
     # the width-only stem fits: it builds and validates
