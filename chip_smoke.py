@@ -101,7 +101,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exact, BatchNorm statistics 1e-5, memory 1e-5, gradient cosines 0.999,
    parameters 1e-5), the ranks' states bit-identical, K3 launched on each
    rank; then ``tools/evaluate.py --multihost --knn`` of 4 scans over the
-   two ranks counts as one rank does, count for count, K2 launched.
+   two ranks counts as one rank does, count for count, K2 launched;
+15. the tools on the card: ``tools/contrast_ablation.py`` on a grid of two
+   arms (``full``, ``nocontrast``) x one seed x 2 epochs at full SalsaNext
+   width on 64x2048 images (8 hard synthetic scans of 20k points, B=4,
+   contrast from epoch 1, KNN validation): K3 once a contrast step of
+   ``full`` and none in ``nocontrast``, K2 once a validation step, the
+   report's runs complete; ``entry()`` once (probabilities of the kitti
+   shape, finite, summing to 1); ``dryrun_multichip(2)`` as two gloo ranks
+   sharing the card (K3 twice a rank: the contrast step and the
+   reference's per-rank memory update; K2 once a rank);
+   ``tools/export_torch_ckpt.py --run_dir`` on phase 9's run, then
+   ``tools/visualize.py --weights --knn`` of one scan from that ``.pth``
+   (K1 and K2 once each), whose predicted labels equal
+   ``tools/infer.py``'s for the scan (their PLY files, one colour a
+   class, byte for byte); ``tools/convert_torch_ckpt.py`` of the ``.pth``
+   gives back every tensor bit for bit.
 
 The build fails the run if ptxas reports a spill in any kernel.
 It prints the card's name and power limit (nvidia-smi), one line per timing
@@ -389,14 +404,14 @@ def k1_phase(k1, points, valid, sensor, tag):
     return res
 
 
-def k3_case(dev, seed: int = 3):
-    """Seeded K3 inputs at KITTI training shapes: normal rows, a l2-normed
-    memory, Gumbel noise; class 0 (ignore) and class 1 empty, class 2 full,
-    random valid counts elsewhere (valid rows are a prefix, as the class
-    gather gives them)."""
+def k3_case(dev, seed: int = 3, shape=(20, 2048, 20, 256)):
+    """Seeded K3 inputs at ``shape`` = (C, M, K, D), KITTI training shapes
+    by default: normal rows, a l2-normed memory, Gumbel noise; class 0
+    (ignore) and class 1 empty, class 2 full, random valid counts elsewhere
+    (valid rows are a prefix, as the class gather gives them)."""
     import torch
 
-    c, m, k, d = 20, 2048, 20, 256
+    c, m, k, d = shape
     g = torch.Generator(device=dev).manual_seed(seed)
     feat = torch.randn(c, m, d, generator=g, device=dev)
     protos = torch.randn(c, k, d, generator=g, device=dev)
@@ -431,10 +446,11 @@ def k3_training_case(cfg, dev, state, batch):
     return feat, valid, protos, gumbel.contiguous()
 
 
-def k3_phase(k3, feat, valid, protos, gumbel, ignore, name, tag):
+def k3_phase(k3, feat, valid, protos, gumbel, ignore, name, tag,
+             timed: bool = True):
     """K3 against its twin on one set of inputs: the gates of phase 3b,
-    two runs bit-identical; its time, its twin's, each pass alone, and the
-    bound this run's valid rows give."""
+    two runs bit-identical; with ``timed``, its time, its twin's, each pass
+    alone, and the bound this run's valid rows give."""
     import torch
 
     kw = dict(momentum=0.999, ignore_cls=ignore)
@@ -472,6 +488,8 @@ def k3_phase(k3, feat, valid, protos, gumbel, ignore, name, tag):
           f"{float(row_err.max()):.3e}, {rows_out} of {row_err.numel()} rows"
           f" off by > 1e-4; empty classes err {empty_err:.1e}; two runs "
           "bit-identical")
+    if not timed:
+        return {"err": err, "rows": n}
     ms = time_ms(lambda: k3.proto_tail(feat, valid, protos, gumbel, **kw))
     plain = time_ms(lambda: k3.proto_tail_reference(feat, valid, protos,
                                                     gumbel, **kw))
@@ -490,6 +508,32 @@ def k3_phase(k3, feat, valid, protos, gumbel, ignore, name, tag):
             "bound": max(ops_ms, bytes_ms), "ops": ops, "bytes": nbytes_,
             "ops_ms": ops_ms, "bytes_ms": bytes_ms, "rows": n,
             "by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def k2_check(k2, proj_range, depth, px, py, n_classes, knn_cfg, name):
+    """K2 against its twin, ``torch.equal``, on one projection with a
+    seeded label image of ``n_classes``; returns the max abs difference."""
+    import torch
+
+    from coarse3d_tpu_torch.ops.knn import pack_range_image
+
+    gen = torch.Generator(device=proj_range.device).manual_seed(2)
+    argmax = torch.randint(0, n_classes, proj_range.shape, generator=gen,
+                           device=proj_range.device, dtype=torch.int32)
+    packed = pack_range_image(proj_range.float(), argmax)
+    kw = dict(n_classes=n_classes, knn=knn_cfg.knn, search=knn_cfg.search,
+              sigma=knn_cfg.sigma, cutoff=knn_cfg.cutoff)
+    args = (depth.float().contiguous(), px.to(torch.int32).contiguous(),
+            py.to(torch.int32).contiguous())
+    got = k2.knn_vote(packed, *args, **kw)
+    want = k2.knn_vote_reference(packed, *args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K2 knn_vote {name} differs from its "
+          f"twin ({int((got != want).sum())} of {got.numel()} points)")
+    b, h, w = proj_range.shape
+    print(f"K2 knn_vote {name}: B={b} {h}x{w} P={depth.shape[1]} "
+          f"C={n_classes}: kernel == twin exactly")
+    return float((got - want).abs().max())
 
 
 def train_phase(cfg, dev):
@@ -1463,6 +1507,200 @@ def two_rank_phase(cfg, dev, thost, one, tag):
     return launches
 
 
+ABLATION_SCANS = 8          # phase 15's grid: hard synthetic scans a run
+ABLATION_POINTS = 20_000
+ABLATION_ARMS = ("full", "nocontrast")
+ABLATION_CLASSES = 8        # the tool's --classes default, as the dry run's
+
+
+def tools_phase(dev, host, run_dir, k1, k2, k3, tmp, tag):
+    """Phase 15: the tools ported last and the repo-level entry's analog on
+    the card; returns each path's kernel launches and the largest K2 and
+    K3 differences from their twins at this phase's shapes."""
+    import torch
+
+    from coarse3d_tpu_torch.configs import preset
+    from coarse3d_tpu_torch.data.label_maps import get_label_spec
+    from coarse3d_tpu_torch.data.synthetic import synthetic_batch
+    from coarse3d_tpu_torch.entry import _dryrun_config, dryrun_multichip
+    from coarse3d_tpu_torch.entry import entry
+    from coarse3d_tpu_torch.ops.projection import range_project_batch
+    from coarse3d_tpu_torch.tools import contrast_ablation
+    from coarse3d_tpu_torch.tools import convert_torch_ckpt
+    from coarse3d_tpu_torch.tools import export_torch_ckpt
+    from coarse3d_tpu_torch.tools import infer as infer_cli
+    from coarse3d_tpu_torch.tools import visualize
+    from coarse3d_tpu_torch.visualizer.vis import colorize_labels, save_ply
+
+    def zero():
+        k1.project_scatter.launches = k1.scatter_min.launches = 0
+        k2.knn_vote.launches = k3.proto_tail.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"proj_scatter_min": k1.project_scatter.launches
+                + k1.scatter_min.launches,
+                "knn_vote": k2.knn_vote.launches,
+                "proto_tail": k3.proto_tail.launches}
+
+    seconds = {}
+    launches = {}
+
+    # K2 and K3 against their twins at the shapes the dry run (16x64, 8
+    # classes, the tiny memory) and the ablation (64x2048, 8 classes, the
+    # kitti memory) give them; these launches come before the counts are
+    # zeroed and do not count
+    t0 = time.perf_counter()
+    dcfg, kcfg = _dryrun_config(), preset("kitti")
+    errs = {"knn_vote": 0.0, "proto_tail": 0.0}
+    for name, cc in (("dry run", dcfg.contrast), ("ablation", kcfg.contrast)):
+        shape = (ABLATION_CLASSES, cc.max_pixels_per_class,
+                 cc.sub_proto_size, cc.proj_dim)
+        got = k3_phase(k3, *k3_case(dev, shape=shape), ignore=0, name=name,
+                       tag=tag, timed=False)
+        errs["proto_tail"] = max(errs["proto_tail"], got["err"])
+    dry_host = synthetic_batch(np.random.default_rng(0), dcfg, batch_size=2,
+                               n_points=1500, weak_ratio=0.01)
+    d = {k: torch.from_numpy(dry_host[k]).to(dev)
+         for k in ("features", "point_depth", "point_px", "point_py")}
+    errs["knn_vote"] = k2_check(
+        k2, d["features"][..., 0], d["point_depth"], d["point_px"],
+        d["point_py"], ABLATION_CLASSES, dcfg.knn, "dry run")
+    n_val = kcfg.train.batch_size_val
+    proj = range_project_batch(
+        torch.from_numpy(host[0][0][:n_val]).to(dev),
+        torch.from_numpy(host[0][1][:n_val]).to(dev), kcfg.sensor)
+    errs["knn_vote"] = max(errs["knn_vote"], k2_check(
+        k2, proj["proj_range"], proj["depth"], proj["px"], proj["py"],
+        ABLATION_CLASSES, kcfg.knn, "ablation"))
+    del d, proj
+    seconds["kernels_at_tool_shapes"] = time.perf_counter() - t0
+
+    # the ablation grid: 2 arms x 1 seed x 2 epochs, contrast from epoch 1
+    t0 = time.perf_counter()
+    zero()
+    report = contrast_ablation.main([
+        "--arms", *ABLATION_ARMS, "--seeds", "1", "--epochs", "2",
+        "--scans", str(ABLATION_SCANS), "--points", str(ABLATION_POINTS),
+        "--weak", "0.01", "--num_workers", "2",
+        "--work", os.path.join(tmp, "ablation"),
+        "--out", os.path.join(tmp, "ablation", "report.json"),
+        "--set", "contrast.contrast_warmup=1",
+        "--set", "train.val_use_knn=true", "--device", dev.type])
+    launches["ablation"] = read()
+    seconds["ablation"] = time.perf_counter() - t0
+    steps = ABLATION_SCANS // 4                 # kitti's batch_size_train
+    val_steps = -(-max(ABLATION_SCANS // 4, 4) // 4)
+    runs = report["runs"]
+    check([r["arm"] for r in runs] == list(ABLATION_ARMS)
+          and all(len(r["series"]) == 2 and np.isfinite(r["series"]).all()
+                  for r in runs), f"ablation runs: {runs}")
+    check(launches["ablation"]["proto_tail"] == steps,
+          f"ablation: K3 launched {launches['ablation']} times; one a "
+          f"contrast step of 'full' is {steps}")
+    check(launches["ablation"]["knn_vote"] == 2 * 2 * val_steps,
+          f"ablation: K2 launched {launches['ablation']}; one a validation "
+          f"step is {2 * 2 * val_steps}")
+    # the arms share their seed, data, initial memory and warmup epoch;
+    # only `full`'s contrast epoch runs K3 and the contrast loss, so the
+    # two final checkpoints must differ in memory and in parameters
+    ck = {arm: torch.load(
+              os.path.join(tmp, "ablation", f"{arm}_s1", "checkpoint",
+                           "epoch_0001.pth"),
+              map_location="cpu", weights_only=False)
+          for arm in ABLATION_ARMS}
+    mem_diff = float((ck["full"]["prototypes"]
+                      - ck["nocontrast"]["prototypes"]).abs().max())
+    par_diff = max(float((v.float() - ck["nocontrast"]["model"][k].float())
+                         .abs().max())
+                   for k, v in ck["full"]["model"].items())
+    check(mem_diff > 0 and par_diff > 0,
+          f"ablation: 'full' and 'nocontrast' end with memories {mem_diff} "
+          f"and parameters {par_diff} apart; the contrast epoch trained "
+          "nothing")
+    print(f"contrast_ablation: {len(runs)} runs x 2 epochs, series "
+          f"{[r['series'] for r in runs]}; full vs nocontrast at the end: "
+          f"memory max abs diff {mem_diff:.3e}, parameters {par_diff:.3e}; "
+          f"launches {launches['ablation']}")
+    del ck
+
+    # entry(): the kitti forward
+    t0 = time.perf_counter()
+    fn, (x,) = entry(dev)
+    probs = fn(x)
+    torch.cuda.synchronize()
+    seconds["entry"] = time.perf_counter() - t0
+    check(tuple(probs.shape) == (1, 64, 2048, 20)
+          and bool(torch.isfinite(probs).all())
+          and float((probs.sum(-1) - 1).abs().max()) < 1e-4,
+          f"entry(): probs {tuple(probs.shape)} {probs.dtype}")
+    print(f"entry(): probs {tuple(probs.shape)} {probs.dtype}")
+    del fn, x, probs
+
+    # dryrun_multichip(2): two gloo ranks on the one card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dry = dryrun_multichip(2, dev)
+    seconds["dryrun_multichip"] = time.perf_counter() - t0
+    # the dry run's batch is projected on the host (synthetic_batch), so
+    # K1 does not run in it
+    launches["dryrun"] = dry["launches"]
+    check(dry["backend"] == "gloo"
+          and dry["launches"] == {"proj_scatter_min": 0, "knn_vote": 2,
+                                  "proto_tail": 4},
+          f"dryrun_multichip(2): backend {dry['backend']}, launches "
+          f"{dry['launches']} (K1 0, K2 2, K3 4 expected)")
+
+    # export phase 9's run, visualize one scan from the .pth, against
+    # infer.py on the same scan; convert the .pth back
+    t0 = time.perf_counter()
+    pth = os.path.join(tmp, "exported.pth")
+    exported, epoch = export_torch_ckpt.main([
+        "--run_dir", run_dir, "--preset", "kitti", "--out", pth,
+        "--device", dev.type])
+    n = int(host[0][1][0].sum())
+    scan = os.path.join(tmp, "000000.bin")
+    host[0][0][0, :n].tofile(scan)
+    zero()
+    visualize.main(["--preset", "kitti", "--scan", scan, "--weights", pth,
+                    "--knn", "--out", os.path.join(tmp, "vis"),
+                    "--device", dev.type])
+    launches["visualize"] = read()
+    infer_cli.main(["--preset", "kitti", "--weights", pth, "--scans", scan,
+                    "--out", os.path.join(tmp, "infer"), "--batch_size", "1",
+                    "--train_ids", "--device", dev.type])
+    pred = np.fromfile(os.path.join(tmp, "infer", "000000.label"), np.int32)
+    spec = get_label_spec("semantic_kitti")
+    save_ply(os.path.join(tmp, "infer.ply"), host[0][0][0, :n, :3],
+             colorize_labels(pred, spec))
+    with open(os.path.join(tmp, "infer.ply"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(tmp, "vis", "000000_pred.ply"), "rb") as f:
+        got = f.read()
+    check(launches["visualize"] == {"proj_scatter_min": 1, "knn_vote": 1,
+                                    "proto_tail": 0},
+          f"visualize: launches {launches['visualize']}")
+    check(pred.shape == (n,) and got == want,
+          "visualize's predicted labels differ from tools/infer.py's")
+    converted = convert_torch_ckpt.main([
+        "--pth", pth, "--net", "salsanext",
+        "--out", os.path.join(tmp, "converted", "model.pth"),
+        "--device", dev.type])
+    model_keys = [k for k in exported if k != "prototypes"]
+    check(sorted(converted) == sorted(model_keys)
+          and all(torch.equal(converted[k], exported[k]) for k in model_keys),
+          "convert_torch_ckpt did not give the exported tensors back")
+    seconds["export_visualize_convert"] = time.perf_counter() - t0
+    print(f"export_torch_ckpt: {len(exported)} tensors, epoch {epoch}; "
+          f"visualize --knn of one scan ({n} points, "
+          f"{len(np.unique(pred))} classes): labels == tools/infer.py's; "
+          f"convert_torch_ckpt round trip: {len(converted)} tensors equal; "
+          f"launches {launches['visualize']}")
+    print(f"timing {tag} tools phase seconds: "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -1774,11 +2012,18 @@ def main() -> int:
         phase_done("12 CRF and border mask")
         del served_model, fstate, tbatch
 
-    # -- 13-14. data parallelism ---------------------------------------------
-    one, mesh_launches, _ = world_one_phase(cfg, dev, thost, k3, tag)
-    phase_done("13 multi-GPU, NCCL group of one")
-    two_launches = two_rank_phase(cfg, dev, thost, one, tag)
-    phase_done("14 multi-GPU, two gloo ranks")
+        # -- 13-14. data parallelism -----------------------------------------
+        one, mesh_launches, _ = world_one_phase(cfg, dev, thost, k3, tag)
+        phase_done("13 multi-GPU, NCCL group of one")
+        two_launches = two_rank_phase(cfg, dev, thost, one, tag)
+        phase_done("14 multi-GPU, two gloo ranks")
+
+        # -- 15. the tools ----------------------------------------------------
+        torch.cuda.empty_cache()
+        tool_launches, tool_errs = tools_phase(
+            dev, host, os.path.join(run_tmp, "run"), k1, k2, k3, run_tmp,
+            tag)
+        phase_done("15 tools")
     print(f"timing {tag} wall seconds per phase: {phase_s}")
 
     kernels = [
@@ -1791,7 +2036,9 @@ def main() -> int:
          "launches": launches["proj_scatter_min"],
          "launches_by_path": {
              "serving": launches["proj_scatter_min"],
-             "families_serving": family_serving["proj_scatter_min"]},
+             "families_serving": family_serving["proj_scatter_min"],
+             **{f"tools_{path}": n["proj_scatter_min"]
+                for path, n in tool_launches.items()}},
          "max_abs_err": k1r["err"],
          "ms": k1r["fused_ms"], "plain_ms": k1r["fused_plain"],
          "bound_ms": k1r["fused_bound"], "bound_by": "bytes",
@@ -1808,8 +2055,10 @@ def main() -> int:
                               "run_loop": loop_launches["knn_vote"],
                               "families_serving": family_serving["knn_vote"],
                               "crf_eval": crf_launches,
-                              "multi_gpu": two_launches["knn_vote"]},
-         "max_abs_err": k2_err,
+                              "multi_gpu": two_launches["knn_vote"],
+                              **{f"tools_{path}": n["knn_vote"]
+                                 for path, n in tool_launches.items()}},
+         "max_abs_err": max(k2_err, tool_errs["knn_vote"]),
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None,
          "ms_by_order": k2_ms_by, "plain_ms_by_order": k2_plain_by},
@@ -1821,8 +2070,11 @@ def main() -> int:
                               "run_loop": loop_launches["proto_tail"],
                               "families_training": family_training,
                               "multi_gpu": (mesh_launches
-                                            + two_launches["proto_tail"])},
-         "max_abs_err": max(k3_dense["err"], k3_train["err"]),
+                                            + two_launches["proto_tail"]),
+                              **{f"tools_{path}": n["proto_tail"]
+                                 for path, n in tool_launches.items()}},
+         "max_abs_err": max(k3_dense["err"], k3_train["err"],
+                            tool_errs["proto_tail"]),
          "ms": k3_dense["ms"], "plain_ms": k3_dense["plain"],
          "bound_ms": k3_dense["bound"], "bound_by": k3_dense["by"],
          "library_ms": None,

@@ -242,6 +242,14 @@ def test_copied_modules_equal_their_originals(rel):
     ("native/__init__.py", ["get_lib", "available", "range_project_native",
                             "scatter_labels_native", "voxelize_native"]),
     ("train/trainer.py", ["fit", "install_signal_handlers"]),
+    ("tools/contrast_ablation.py", ["_sign_flip_perm_p", "_escape_epoch",
+                                    "_write"]),
+    ("tools/gen_weak_labels.py", ["voxelize", "sample_weak_labels",
+                                  "_process_scan", "_nuscenes_weak_path",
+                                  "_nuscenes_jobs"]),
+    ("tools/build_nuscenes_manifest.py", ["load_table", "build_records",
+                                          "official_splits"]),
+    ("tools/baseline_matrix.py", ["_run", "_write_report"]),
 ])
 def test_copied_functions_equal_their_originals(rel, names):
     """Copies inside modules that otherwise differ: each named function or
@@ -304,8 +312,86 @@ def test_new_modules_are_imported_by_the_walk():
     for mod in ("models.rangenet", "models.squeezesegv3", "postproc",
                 "postproc.crf", "postproc.border", "tools.train_crf",
                 "parallel", "parallel.mesh", "data.camera",
-                "utils.tensor_ops"):
+                "utils.tensor_ops", "entry", "tools._flax_msgpack",
+                *(f"tools.{t}" for t in NEW_TOOLS)):
         assert f"coarse3d_tpu_torch.{mod}" in names, mod
+
+
+# the tools ported last, and the device each runs on; the two that only
+# read and write files on the host take no --device, as their JAX originals
+# run on any data-preparation machine
+NEW_TOOLS = ("contrast_ablation", "gen_weak_labels", "build_nuscenes_manifest",
+             "baseline_matrix", "visualize", "convert_torch_ckpt",
+             "export_torch_ckpt")
+HOST_TOOLS = ("gen_weak_labels", "build_nuscenes_manifest")
+
+
+@pytest.mark.parametrize("tool", NEW_TOOLS)
+def test_tool_cli_flags_cover_the_originals(tool):
+    """Each tool takes every flag of the JAX package's, and --device, but
+    for the host-only tools (HOST_TOOLS), which take exactly the JAX
+    flags."""
+    def flags(package):
+        with open(os.path.join(REPO, package, "tools", f"{tool}.py")) as f:
+            return set(re.findall(r'add_argument\(\s*"(--\w+)"', f.read()))
+
+    port, orig = flags("coarse3d_tpu_torch"), flags("coarse3d_tpu")
+    assert orig <= port, sorted(orig - port)
+    if tool in HOST_TOOLS:
+        assert port == orig
+    else:
+        assert "--device" in port - orig
+
+
+def test_project_listing_has_a_counterpart_for_every_module():
+    """Every module of the JAX package has its counterpart in the port;
+    the port's only other modules are its own additions, and the Pallas
+    kernels live in ops/{proj_scatter,knn_vote,proto_update}.py."""
+    def listing(package):
+        root = os.path.join(REPO, package)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+
+    jax_mods = {m for m in listing("coarse3d_tpu")
+                if not m.startswith("ops/pallas/")}
+    port = listing("coarse3d_tpu_torch")
+    assert jax_mods - port == set()
+    assert port - jax_mods == {
+        "device.py", "entry.py", "ops/_build.py", "ops/proj_scatter.py",
+        "ops/knn_vote.py", "ops/proto_update.py",
+        "tools/convert_jax_params.py", "tools/_flax_msgpack.py",
+        "utils/profiling.py"}
+
+
+@pytest.mark.parametrize("tool, argv", [
+    ("contrast_ablation", ["--arms", "full", "--seeds", "1"]),
+    ("baseline_matrix", ["train", "--pcd_root", "x", "--dry_run"]),
+    ("visualize", ["--scan", "x.bin", "--out", "y"]),
+    ("convert_torch_ckpt", ["--pth", "x.pth", "--out", "y.pth"]),
+    ("export_torch_ckpt", ["--run_dir", "x", "--out", "y.pth"]),
+])
+def test_new_tools_default_to_the_card(tool, argv, monkeypatch, capsys):
+    """Left at its default --device, each tool that runs a model raises
+    without a card before it reads or writes anything (baseline_matrix's
+    dry run names --device cuda in every stage that runs a model, where
+    the stage raises; export_torch_ckpt's --msgpack path, which touches no
+    device, runs without one: tests/test_torch_tools.py)."""
+    import importlib
+
+    main = importlib.import_module(f"coarse3d_tpu_torch.tools.{tool}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if tool == "baseline_matrix":
+        assert main(argv)["dry_run"]
+        stages = [line for line in capsys.readouterr().out.splitlines()
+                  if not line.startswith("#")]
+        assert stages and all(
+            line.endswith(" --device cuda")
+            != (" coarse3d_tpu_torch.tools.gen_weak_labels " in line)
+            for line in stages)
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
 
 
 def test_batch_keys_and_config_surface_match():

@@ -30,7 +30,10 @@ Tolerances:
 - striped dropout masks and entropy selection: exactly the global draw's
   stripe;
 - ``evaluate --multihost``: the confusion matrix count for count;
-  ``train_crf --multihost`` against one process: kernel atol 1e-5.
+  ``train_crf --multihost`` against one process: kernel atol 1e-5;
+  ``contrast_ablation --multihost`` against one process on the global
+  batch: rank 0's report runs equal (validation mIoU series and per-class
+  IoU as the tool rounds them), the same step count in the checkpoint.
 """
 
 import dataclasses
@@ -206,7 +209,12 @@ def _step_worker(rank, port, tmp):
 
 def _cli_worker(rank, ports, tmp, argvs):
     """Each CLI under torchrun's environment, one port per process group."""
-    from coarse3d_tpu_torch.tools import evaluate, train, train_crf
+    from coarse3d_tpu_torch.tools import (
+        contrast_ablation,
+        evaluate,
+        train,
+        train_crf,
+    )
 
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
@@ -215,7 +223,8 @@ def _cli_worker(rank, ports, tmp, argvs):
     for (name, argv), port in zip(argvs, ports):
         os.environ["MASTER_PORT"] = str(port)
         tool = {"train": train, "evaluate": evaluate,
-                "train_crf": train_crf}[name]
+                "train_crf": train_crf,
+                "contrast_ablation": contrast_ablation}[name]
         got = tool.main(argv + ["--multihost"])
         if name == "train":
             got = {"params": {k: v.detach().clone() for k, v in
@@ -525,6 +534,16 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 # -- the CLIs under torchrun's environment --------------------------------------------
 
+# one arm, one contrast epoch of the hard synthetic task at 16x64: 8 scans
+# make 2 global batches of 4, 4 validation scans 1
+ABLATION = ["--arms", "full", "--seeds", "1", "--epochs", "1", "--scans", "8",
+            "--points", "1500", "--classes", "4", "--weak", "0.01",
+            "--segments", "4", "--modes", "1", "--num_workers", "1",
+            "--device", "cpu"]
+for _s in ("sensor.proj_h=16", "sensor.proj_w=64", "data.max_points=4096",
+           "model.compute_dtype=float32", "contrast.contrast_warmup=0"):
+    ABLATION += ["--set", _s]
+
 @pytest.fixture(scope="module")
 def clis(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("clis"))
@@ -543,6 +562,11 @@ def clis(tmp_path_factory):
                                 "2", "--epochs", "2", "--run_dir", run,
                                 "--ckpt", "latest", "--out",
                                 os.path.join(tmp, "crf2.npz")]),
+        ("contrast_ablation", ABLATION + [
+            "--work", os.path.join(tmp, "abl2"),
+            "--out", os.path.join(tmp, "abl2", "report.json"),
+            "--set", "train.batch_size_train=2",
+            "--set", "train.batch_size_val=2"]),
     ]
     ports = [_free_port() for _ in argvs]
     mp.spawn(_cli_worker, args=(ports, tmp, argvs), nprocs=WORLD, join=True)
@@ -601,3 +625,33 @@ def test_train_crf_multihost_fits_the_one_process_kernel(clis, tmp_path):
         np.testing.assert_allclose(r["train_crf"]["history"],
                                    want["history"], rtol=1e-4)
     assert os.path.isfile(os.path.join(clis["tmp"], "crf2.npz"))
+
+
+def test_contrast_ablation_multihost_reports_like_one_process(clis,
+                                                              tmp_path):
+    """``contrast_ablation --multihost`` over two processes of 2 scans a
+    batch against one process of 4: rank 0 alone returns and writes the
+    report, whose runs equal the one process's; its checkpoint took the
+    one process's 2 steps (the global batch is 4)."""
+    from coarse3d_tpu_torch.tools import contrast_ablation
+
+    got, none = (r["contrast_ablation"] for r in clis["ranks"])
+    assert none is None
+    with open(os.path.join(clis["tmp"], "abl2", "report.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(got))
+    assert got["config"]["multihost"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = contrast_ablation.main(ABLATION + [
+            "--work", str(tmp_path), "--out", str(tmp_path / "report.json"),
+            "--set", "train.batch_size_train=4",
+            "--set", "train.batch_size_val=4"])
+    finally:
+        torch.set_num_threads(threads)
+    assert got["runs"] == want["runs"]
+    steps = [torch.load(os.path.join(root, "full_s1", "checkpoint",
+                                     "epoch_0000.pth"),
+                        weights_only=False)["step"]
+             for root in (os.path.join(clis["tmp"], "abl2"), str(tmp_path))]
+    assert steps == [2, 2]
