@@ -85,7 +85,9 @@ def main(argv=None):
                         "gloo with --device cpu)")
     p.add_argument("--profile_steps", type=int, nargs=2, default=None,
                    metavar=("FIRST", "LAST"),
-                   help="torch.profiler trace window within epoch 0")
+                   help="torch.profiler trace window within epoch 0, "
+                        "written to <save_path>/profile/trace.json with the "
+                        "step's spans on a track of their own")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a card) or 'cpu'")
     args = p.parse_args(argv)

@@ -19,7 +19,11 @@ Differences of form, not of result:
   never copied: the anchor and class gathers read only the rows they need.
 
 Nothing inside the step reads a value back to the host: no ``.item()``, no
-Python branch on a tensor.
+Python branch on a tensor. While a profiler records, the step records its
+stages as spans (``utils/profiling.py``): ``train.inputs``,
+``train.forward``, ``train.losses``, ``train.backward``,
+``train.optimizer``, ``train.prototypes`` and ``train.metrics``, which the
+Trainer extends over its own accumulators.
 
 Across GPUs (``mesh``, ``parallel/mesh.py``; one process per card) a step
 on each rank's stripe equals one step on the global batch, the ranks'
@@ -69,6 +73,7 @@ from coarse3d_tpu_torch.ops.projection import normalize_features
 from coarse3d_tpu_torch.parallel.mesh import all_reduce_sum, stripe
 from coarse3d_tpu_torch.postproc.crf import crf_refine, init_compat_kernel
 from coarse3d_tpu_torch.train.state import TrainState
+from coarse3d_tpu_torch.utils.profiling import span
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -157,102 +162,118 @@ def make_train_step(cfg: ExperimentConfig, alpha, *, with_contrast: bool,
                    select_ratio=0.0, noise: dict[str, Any] | None = None):
         model = state.model
         dev = state.device
-        (features, train_label, _, wss_mask,
-         eval_mask) = _prepare_inputs(batch, cfg)
-        b, h, w = train_label.shape
-        if with_contrast:
-            if noise is None:             # the global batch's, alike on
-                noise = draw_noise(       # every rank
-                    state.generator, cfg, b * world, h, w,
-                    ranks=world if ddp_parity else None)
-            noise = {k: torch.as_tensor(v).to(dev, torch.float32)
-                     for k, v in noise.items()}
-            noise["select"] = stripe(noise["select"], mesh)
-            noise["anchor"] = stripe(noise["anchor"], mesh)
-            if ddp_parity:
-                noise["proto"] = noise["proto"][mesh.rank]
-        if dev not in alpha_on:
-            alpha_on[dev] = torch.from_numpy(alpha_np).to(dev)
-        alpha_t = alpha_on[dev]
+        with span("train.inputs"):
+            (features, train_label, _, wss_mask,
+             eval_mask) = _prepare_inputs(batch, cfg)
+            b, h, w = train_label.shape
+            if with_contrast:
+                if noise is None:             # the global batch's, alike on
+                    noise = draw_noise(       # every rank
+                        state.generator, cfg, b * world, h, w,
+                        ranks=world if ddp_parity else None)
+                noise = {k: torch.as_tensor(v).to(dev, torch.float32)
+                         for k, v in noise.items()}
+                noise["select"] = stripe(noise["select"], mesh)
+                noise["anchor"] = stripe(noise["anchor"], mesh)
+                if ddp_parity:
+                    noise["proto"] = noise["proto"][mesh.rank]
+            if dev not in alpha_on:
+                alpha_on[dev] = torch.from_numpy(alpha_np).to(dev)
+            alpha_t = alpha_on[dev]
 
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        out = model(features.permute(0, 3, 1, 2).contiguous(),
-                    return_feat=with_contrast, generator=state.generator)
-        probs = out["probs"].permute(0, 2, 3, 1)             # (B, H, W, C)
+        with span("train.forward"):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            out = model(features.permute(0, 3, 1, 2).contiguous(),
+                        return_feat=with_contrast, generator=state.generator)
+            probs = out["probs"].permute(0, 2, 3, 1)         # (B, H, W, C)
 
-        losses: dict[str, torch.Tensor] = {}
-        total = torch.zeros((), device=dev)
-        if cfg.train.loss_w_ce_2d > 0:
-            losses["focal"] = focal_softmax_loss(
-                probs, train_label, alpha_t, wss_mask,
-                gamma=cfg.train.focal_gamma, mesh=mesh)
-            total = total + cfg.train.loss_w_ce_2d * losses["focal"]
-        if cfg.train.loss_w_lov_2d > 0:
-            losses["lovasz"] = lovasz_softmax_loss(
-                probs, train_label, ignore=ignore,
-                budget=cfg.train.lovasz_budget or None, mesh=mesh)
-            total = total + cfg.train.loss_w_lov_2d * losses["lovasz"]
-        overflow = None
-        if cfg.train.loss_w_lov_2d > 0 and cfg.train.lovasz_budget:
-            # not a loss: truncation sentinel (global, not a share)
-            overflow = lovasz_budget_overflow(
-                train_label, ignore, cfg.train.lovasz_budget,
-                mesh=mesh).to(torch.float32)
+        with span("train.losses"):
+            losses: dict[str, torch.Tensor] = {}
+            total = torch.zeros((), device=dev)
+            if cfg.train.loss_w_ce_2d > 0:
+                losses["focal"] = focal_softmax_loss(
+                    probs, train_label, alpha_t, wss_mask,
+                    gamma=cfg.train.focal_gamma, mesh=mesh)
+                total = total + cfg.train.loss_w_ce_2d * losses["focal"]
+            if cfg.train.loss_w_lov_2d > 0:
+                losses["lovasz"] = lovasz_softmax_loss(
+                    probs, train_label, ignore=ignore,
+                    budget=cfg.train.lovasz_budget or None, mesh=mesh)
+                total = total + cfg.train.loss_w_lov_2d * losses["lovasz"]
+            overflow = None
+            if cfg.train.loss_w_lov_2d > 0 and cfg.train.lovasz_budget:
+                # not a loss: truncation sentinel (global, not a share)
+                overflow = lovasz_budget_overflow(
+                    train_label, ignore, cfg.train.lovasz_budget,
+                    mesh=mesh).to(torch.float32)
 
-        embedding = None
-        if with_contrast:
-            embedding = out["embedding"].permute(0, 2, 3, 1)  # (B, H, W, D)
-        if with_contrast and cfg.contrast.loss_w_contrast > 0:
-            if cfg.contrast.entropy_selection:
-                pseudo_label, pseudo_mask = entropy_based_selection(
-                    probs.detach(), wss_mask, eval_mask, train_label,
-                    select_ratio, noise["select"], ignore_cls=ignore,
-                    global_batch=b * world)
-            else:
-                pseudo_label, pseudo_mask = train_label, wss_mask
-            losses["contrast"] = contrast_mem_loss(
-                embedding, probs.detach(), pseudo_label, pseudo_mask,
-                state.prototypes.detach(), noise["anchor"], cfg.contrast,
-                ignore_cls=ignore, mesh=mesh)
-            total = total + cfg.contrast.loss_w_contrast * losses["contrast"]
-        losses["total"] = total
+            embedding = None
+            if with_contrast:
+                embedding = out["embedding"].permute(0, 2, 3, 1)  # (B,H,W,D)
+            if with_contrast and cfg.contrast.loss_w_contrast > 0:
+                if cfg.contrast.entropy_selection:
+                    pseudo_label, pseudo_mask = entropy_based_selection(
+                        probs.detach(), wss_mask, eval_mask, train_label,
+                        select_ratio, noise["select"], ignore_cls=ignore,
+                        global_batch=b * world)
+                else:
+                    pseudo_label, pseudo_mask = train_label, wss_mask
+                losses["contrast"] = contrast_mem_loss(
+                    embedding, probs.detach(), pseudo_label, pseudo_mask,
+                    state.prototypes.detach(), noise["anchor"], cfg.contrast,
+                    ignore_cls=ignore, mesh=mesh)
+                total = (total
+                         + cfg.contrast.loss_w_contrast * losses["contrast"])
+            losses["total"] = total
 
-        total.backward()
-        # optax updates every parameter at every step (its count, moment
-        # decay and weight decay are global); torch's AdamW skips a
-        # parameter whose grad is None (the projector in a warmup step)
-        params = list(model.parameters())
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        _sum_gradients(params, mesh)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
+        with span("train.backward"):
+            total.backward()
 
-        names = list(losses)
-        shares = torch.stack([losses[k].detach() for k in names])
-        reported = dict(zip(names, all_reduce_sum(shares, mesh).unbind()))
-        if overflow is not None:
-            reported["lovasz_overflow"] = overflow
-        metrics: dict[str, Any] = {"losses": reported}
-        old_protos = state.prototypes
-        if with_contrast and cfg.contrast.use_prototype:
-            if ddp_parity:
-                state.prototypes = update_prototypes_ddp_parity(
-                    old_protos, embedding.detach(), train_label, wss_mask,
-                    noise["proto"], cfg.contrast, mesh, ignore_cls=ignore)
-            else:
-                state.prototypes = update_prototypes(
-                    old_protos, embedding.detach(), train_label, wss_mask,
-                    noise["proto"], cfg.contrast, ignore_cls=ignore,
-                    mesh=mesh)
-        if with_contrast:
-            metrics["diag"] = prototype_diagnostics(
-                old_protos, state.prototypes, ignore_cls=ignore)
-        metrics["confusion"] = all_reduce_sum(
-            _metrics_3d(probs.detach(), batch, cfg), mesh)
+        with span("train.optimizer"):
+            # optax updates every parameter at every step (its count,
+            # moment decay and weight decay are global); torch's AdamW
+            # skips a parameter whose grad is None (the projector in a
+            # warmup step)
+            params = list(model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            _sum_gradients(params, mesh)
+            state.optimizer.step()
+            state.scheduler.step()
+            state.step += 1
+
+        with span("train.prototypes"):
+            old_protos = state.prototypes
+            if with_contrast and cfg.contrast.use_prototype:
+                if ddp_parity:
+                    state.prototypes = update_prototypes_ddp_parity(
+                        old_protos, embedding.detach(), train_label,
+                        wss_mask, noise["proto"], cfg.contrast, mesh,
+                        ignore_cls=ignore)
+                else:
+                    state.prototypes = update_prototypes(
+                        old_protos, embedding.detach(), train_label,
+                        wss_mask, noise["proto"], cfg.contrast,
+                        ignore_cls=ignore, mesh=mesh)
+            diag = (prototype_diagnostics(old_protos, state.prototypes,
+                                          ignore_cls=ignore)
+                    if with_contrast else None)
+
+        # the caller (train/trainer.py) extends this span over its own
+        # device accumulators
+        with span("train.metrics"):
+            names = list(losses)
+            shares = torch.stack([losses[k].detach() for k in names])
+            reported = dict(zip(names, all_reduce_sum(shares, mesh).unbind()))
+            if overflow is not None:
+                reported["lovasz_overflow"] = overflow
+            metrics: dict[str, Any] = {"losses": reported}
+            if diag is not None:
+                metrics["diag"] = diag
+            metrics["confusion"] = all_reduce_sum(
+                _metrics_3d(probs.detach(), batch, cfg), mesh)
         return state, metrics
 
     return train_step

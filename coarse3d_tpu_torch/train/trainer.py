@@ -46,7 +46,14 @@ from coarse3d_tpu_torch.train.step import (
     select_ratio_schedule,
 )
 from coarse3d_tpu_torch.utils import AverageMeter, Recorder, RemainTime
-from coarse3d_tpu_torch.utils.profiling import host_sync_calls
+from coarse3d_tpu_torch.utils.profiling import (
+    NO_SPAN,
+    add_spans_to_chrome_trace,
+    extend,
+    host_sync_calls,
+    span,
+    traced_spans,
+)
 
 
 def _accumulate(sums: dict | None, values: dict) -> dict:
@@ -167,7 +174,9 @@ class Trainer:
             prof.__exit__(None, None, None)
             out_dir = os.path.join(self.cfg.save_path, "profile")
             os.makedirs(out_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+            trace = os.path.join(out_dir, "trace.json")
+            prof.export_chrome_trace(trace)
+            add_spans_to_chrome_trace(trace, traced_spans())
             self.last_profile_syncs = host_sync_calls(prof)
             prof = None
         return prof
@@ -193,7 +202,9 @@ class Trainer:
                   ("total", "focal", "lovasz", "contrast")}
         total_iter = pipe.steps_per_epoch()
         log = self.recorder.logger
-        t_epoch = t_start = time.time()
+        # one clock read starts an epoch, DT and the spans of a step:
+        # time.time_ns(), the clock of the profiler's own events
+        t_epoch = t_start = t_open = time.time_ns()
 
         # Confusion AND loss scalars accumulate ON DEVICE; the host fetches
         # loss values only at logging intervals (for display) and once at
@@ -212,13 +223,21 @@ class Trainer:
         for i, host_batch in enumerate(pipe.epoch(epoch)):
             if profiling:
                 prof = self._profile_window(prof, i)
+            # spans (utils/profiling.py) of a training iteration:
+            # train.step, its root, from the end of the last one;
+            # train.data, the wait for the batch and its copy; the step's
+            # own (train/step.py); train.log. Validation records none.
+            step_span = (span("train.step", rid=self.state.step) if train
+                         else NO_SPAN).open(t_open)
+            data_span = (span("train.data") if train else NO_SPAN).open(t_open)
             # DT includes the copy to the card (with a mesh, the rank's
             # stripe to its card: parallel.mesh.shard_batch), as the JAX
-            # Trainer's includes shard_batch
+            # Trainer's includes shard_batch, and the last step's log
             batch = batch_to_device(
                 {k: host_batch[k] for k in BATCH_KEYS}, self.device)
-            t_proc = time.time()
-            data_time = t_proc - t_start
+            t_proc = time.time_ns()
+            data_span.close(t_proc)
+            data_time = (t_proc - t_start) * 1e-9
 
             if train:
                 self.state, metrics = step_fn(self.state, batch, ratio)
@@ -239,13 +258,17 @@ class Trainer:
             if diag:
                 device_diag_sums = _accumulate(device_diag_sums, diag)
 
-            proc_time = time.time() - t_proc
+            t_done = time.time_ns()
+            extend("train.metrics", t_done)
+            proc_time = (t_done - t_proc) * 1e-9
             data_times.append(data_time)
             proc_times.append(proc_time)
-            self.remain_time.update(time.time() - t_start, mode)
-            t_start = time.time()
+            self.remain_time.update((time.time_ns() - t_start) * 1e-9, mode)
+            t_start = t_open = time.time_ns()
 
             if i % 10 == 0:
+                log_span = (span("train.log") if train else NO_SPAN).open(
+                    t_start)
                 bsz = host_batch["features"].shape[0]
                 loss_host = {k: float(v) for k, v in losses.items()}
                 for k, v in loss_host.items():
@@ -261,6 +284,9 @@ class Trainer:
                     f"{self.cfg.train.n_epochs:03d}] "
                     f"I[{i + 1:04d}|{total_iter:04d}] DT[{data_time:.3f}] "
                     f"PT[{proc_time:.3f}] {loss_str} RT[{eta}]")
+                t_open = time.time_ns()
+                log_span.close(t_open)
+            step_span.close(t_open)
         if prof is not None:        # the epoch ended inside the window
             self._profile_window(prof, self.profile_steps[1])
         if not train and self.mesh is not None and self.mesh.world > 1:
@@ -286,7 +312,7 @@ class Trainer:
             "data_later_s": (float(np.mean(data_times[1:]))
                              if len(data_times) > 1 else 0.0),
             "proc_s": float(np.mean(proc_times)) if proc_times else 0.0,
-            "epoch_s": time.time() - t_epoch,
+            "epoch_s": (time.time_ns() - t_epoch) * 1e-9,
         }
         if epoch_loss.get("lovasz_overflow", 0.0) > 0:
             # losses/lovasz.py:lovasz_budget_overflow: the budgeted sort

@@ -236,6 +236,12 @@ def test_profile_window_writes_a_trace(tmp_path):
     trainer.run_epoch(0, "Train")
     assert os.path.getsize(tmp_path / "run" / "profile" / "trace.json") > 0
     assert trainer.last_profile_syncs == {}      # no card, no CUDA calls
+    # the window's step, with its spans (utils/profiling.py) on their track
+    with open(tmp_path / "run" / "profile" / "trace.json") as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "span"]
+    assert names[:2] == ["train.step", "train.data"]
+    assert names.count("train.step") == 1
 
 
 @pytest.fixture(scope="module")
