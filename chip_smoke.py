@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. builds the port's CUDA kernels from csrc/ with nvcc (all at once) and
+1. builds the port's four CUDA kernels from csrc/ with nvcc (all at once) and
    the native host preprocessing library with g++;
 2. K1 (projection scatter-min) at KITTI size (B=16 scans of 120k points
    padded to 150k, 64x2048 images), kernel vs its plain twin: exact, for
@@ -22,6 +22,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    <= 2e-5 at momentum 0.999; >= 0.95 of the (C, K) rows within 1e-4 at
    momentum 0 (a rare argmax flip moves a whole row); no NaN; the empty
    classes keep l2(memory); two runs bit-identical; each pass timed alone;
+3c. K4 (SqueezeSegV3's fused SAC attention and 1x1 mix) at the seven SAC
+   blocks of a SqueezeSegV3-21 serving batch (B=8, 64 rows; c and W of
+   32x2048, 64x1024, 2 x 128x512, 3 x 256x256; seeded weights, BatchNorm
+   statistics from the inputs): kernel vs its twin within 1e-2 of the
+   largest output and no output beyond a bf16 ulp of the twin's plus 1e-3
+   of the largest, kernel vs the unfused modules within 5e-2; at W=200
+   (a ragged row segment) and W=100 (rows that 8 does not divide); the
+   kernel's, the twin's and the modules' times (the modules as
+   ``library_ms``) and the bound; K4's launches on a SqueezeSegV3-21
+   serving batch of 8 scans (one a SAC block: 7), a SalsaNext batch (0)
+   and a SqueezeSegV3-21 training forward and backward plus an eval
+   forward with grad on (0);
 4. the serving path: SalsaNext (parity stem, full width, bf16 compute,
    seeded random weights, BatchNorm statistics calibrated on two scans so
    the label map is not constant) answers 3 batches of 16 scans through
@@ -118,7 +130,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    class, byte for byte); ``tools/convert_torch_ckpt.py`` of the ``.pth``
    gives back every tensor bit for bit.
 
-The build fails the run if ptxas reports a spill in any kernel.
+The build fails the run if ptxas reports a spill in any kernel; it prints
+each source's nvcc seconds.
 It prints the card's name and power limit (nvidia-smi), one line per timing
 tagged with them, a ``{"kernels": [...]}`` line (K2's time in both point
 orders, K3's at both sizes and per pass, beside the common fields), and last
@@ -270,10 +283,10 @@ def ptxas_report(log_path: str):
                 # the kernel's own name, and its template arguments, out of
                 # the mangled one
                 name = re.search(r"(row_pass|class_pass|live_tiles|tile_[a-z]+"
-                                 r"|scatter_min_keys|decode_keys|scatter_keys|emit_pixels)",
-                                 m.group(1))
+                                 r"|scatter_min_keys|decode_keys|scatter_keys|emit_pixels"
+                                 r"|sac_fused_kernel)", m.group(1))
                 args = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
-                flag = re.search(r"ILb([01])E", m.group(1))
+                flag = re.search(r"IL[ib](\d+)EE", m.group(1))
                 func = (name.group(1) if name else m.group(1)) + (
                     "<%s,%s>" % args.groups() if args else
                     "<%s>" % flag.group(1) if flag else "")
@@ -508,6 +521,157 @@ def k3_phase(k3, feat, valid, protos, gumbel, ignore, name, tag,
             "bound": max(ops_ms, bytes_ms), "ops": ops, "bytes": nbytes_,
             "ops_ms": ops_ms, "bytes_ms": bytes_ms, "rows": n,
             "by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+# SqueezeSegV3-21's SAC blocks at B=8 on the 64x2048 KITTI image: (width,
+# image width) of each of its seven blocks, in forward order
+K4_SHAPES = ((32, 2048), (64, 1024), (128, 512), (128, 512), (256, 256),
+             (256, 256), (256, 256))
+K4_BATCH = 8
+K4_HEIGHT = 64
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+
+
+def k4_case(dev, c: int, w: int, seed: int):
+    """A SAC block of width c with seeded weights, its BatchNorm statistics
+    taken from the seeded inputs (float32, one training-mode pass), in eval
+    mode; xyz (K4_BATCH, 3, K4_HEIGHT, w) float32 and a ReLU'd bf16
+    feature (K4_BATCH, c, K4_HEIGHT, w)."""
+    import torch
+
+    from coarse3d_tpu_torch.models.squeezesegv3 import SACBlock
+    from coarse3d_tpu_torch.train.setup import init_weights
+
+    blk = SACBlock(c)
+    init_weights(blk, torch.Generator().manual_seed(seed))
+    blk = blk.to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.randn(K4_BATCH, 3, K4_HEIGHT, w, generator=g, device=dev)
+    feat = torch.randn(K4_BATCH, c, K4_HEIGHT, w, generator=g,
+                       device=dev).relu()
+    for mod in blk.modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.momentum = 1.0
+    with torch.no_grad():
+        blk.train()(xyz, feat)
+    return blk.eval(), xyz, feat.to(torch.bfloat16)
+
+
+def k4_phase(k4, dev, host, tag):
+    """K4 at the seven SAC blocks of a SqueezeSegV3-21 serving batch (B=8):
+    kernel against its twin and against the unfused modules; the kernel's,
+    the twin's and the modules' times, the bound; then K4's launches on a
+    SqueezeSegV3-21 serving batch (one a block), a SalsaNext serving batch
+    and a SqueezeSegV3-21 training forward and backward (none)."""
+    import torch
+
+    from coarse3d_tpu_torch.configs import preset
+    from coarse3d_tpu_torch.eval.inference import make_inference_fn
+    from coarse3d_tpu_torch.models.squeezesegv3 import unfold3x3
+    from coarse3d_tpu_torch.train.setup import build_model
+
+    rows, seen = [], {}
+    for i, (c, w) in enumerate(K4_SHAPES):
+        blk, xyz, feat = k4_case(dev, c, w, seed=11 + i)
+        with torch.inference_mode(), torch.autocast(dev.type, torch.bfloat16):
+            weights = blk.folded(torch.bfloat16)
+            xb = xyz.to(torch.bfloat16).contiguous()
+
+            def kernel():
+                return k4.sac_fused(xb, feat, weights)
+
+            def modules():
+                att = blk.attention_x(xyz)
+                return blk.position_mlp_2[:3](unfold3x3(feat)
+                                              * att.to(feat.dtype))
+
+            got = kernel().float()
+            want = k4.sac_fused_reference(xb, feat, weights).float()
+            chain = modules().float()
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            abs_err = float((got - want).abs().max())
+            err = abs_err / scale
+            # beyond one bf16 ulp of the twin's value (both round float32
+            # sums of the same bf16 operands, summed in another order)
+            off = float(((got - want).abs()
+                         > want.abs() * 2.0 ** -7 + 1e-3 * scale)
+                        .float().mean())
+            err_modules = float((got - chain).abs().max()) / scale
+            check(err <= 1e-2 and off <= 1e-4,
+                  f"K4 c={c} W={w}: kernel vs twin max error {err:.3e} of "
+                  f"the output's max, {off:.2e} of outputs beyond an ulp")
+            check(err_modules <= 5e-2, f"K4 c={c} W={w}: kernel vs the "
+                  f"unfused modules {err_modules:.3e} of the output's max")
+            if (c, w) not in seen:
+                ms = time_ms(kernel)
+                device_us = sum(profile_launches(kernel).values())
+                plain = time_ms(lambda: k4.sac_fused_reference(xb, feat,
+                                                               weights),
+                                reps=5)
+                library = time_ms(modules)
+                pix = K4_BATCH * K4_HEIGHT * w
+                ops = 2 * pix * 9 * c * (k4.TAPS + c)
+                nb = nbytes(xb, feat, got.to(torch.bfloat16), *weights)
+                bound = max(ops / BF16_OPS_PER_S, nb / HBM_BYTES_PER_S) * 1e3
+                seen[(c, w)] = dict(ms=ms, device_us=device_us, plain=plain,
+                                    library=library, bound=bound, ops=ops,
+                                    bytes=nb)
+        rows.append(dict(c=c, w=w, err=err, abs_err=abs_err, off=off,
+                         err_modules=err_modules, **seen[(c, w)]))
+        print(f"timing {tag} K4 sac_fused block {i} B={K4_BATCH} c={c} "
+              f"{K4_HEIGHT}x{w}: kernel {rows[-1]['ms']:.4f} ms (device "
+              f"{rows[-1]['device_us']:.1f} us), twin {rows[-1]['plain']:.4f}"
+              f" ms, unfused modules (library) {rows[-1]['library']:.4f} ms, "
+              f"bound {rows[-1]['bound']:.4f} ms ({rows[-1]['ops'] / 1e9:.1f}"
+              f" GFLOP at 989 TFLOP/s); vs twin {err:.2e} ({off:.1e} beyond "
+              f"an ulp), vs modules {err_modules:.2e}")
+        del blk, xyz, feat, xb, got, want, chain
+    # ragged: a width the 128-pixel row segment does not divide, and one
+    # that 8 does not (the scalar loads and stores)
+    for c, w in ((64, 200), (32, 100)):
+        blk, xyz, feat = k4_case(dev, c, w, seed=40 + c)
+        with torch.inference_mode():
+            weights = blk.folded(torch.bfloat16)
+            xb = xyz.to(torch.bfloat16).contiguous()
+            got = k4.sac_fused(xb, feat, weights).float()
+            want = k4.sac_fused_reference(xb, feat, weights).float()
+            err = float((got - want).abs().max() / want.abs().max())
+        check(err <= 1e-2, f"K4 c={c} W={w}: kernel vs twin {err:.3e}")
+        print(f"K4 c={c} W={w} (ragged): kernel vs twin {err:.2e}")
+
+    # launches by path, on the first 8 scans of the serving batch
+    cfg = preset("kitti")
+    points = torch.from_numpy(host[0][0][:K4_BATCH]).to(dev)
+    valid = torch.from_numpy(host[0][1][:K4_BATCH]).to(dev)
+    launches = {}
+    for name in ("squeezesegv3_21", "salsanext"):
+        fcfg = family_cfg(cfg, name) if name != "salsanext" else cfg
+        infer = make_inference_fn(build_model(fcfg, device=dev, seed=0),
+                                  fcfg)
+        infer(points, valid)
+        torch.cuda.synchronize()
+        before = k4.sac_fused.launches
+        infer(points, valid)
+        torch.cuda.synchronize()
+        launches[f"serving_{name}"] = k4.sac_fused.launches - before
+    model = build_model(family_cfg(cfg, "squeezesegv3_21"), device=dev)
+    x = torch.randn(TRAIN_BATCH, 5, K4_HEIGHT, cfg.sensor.proj_w,
+                    device=dev)
+    before = k4.sac_fused.launches
+    model.train()
+    out = model(x, generator=torch.Generator(device=dev).manual_seed(0))
+    out["logits"].float().mean().backward()
+    model.eval()
+    model(x)["logits"].float().mean().backward()    # eval, grad on
+    torch.cuda.synchronize()
+    launches["training_squeezesegv3_21"] = k4.sac_fused.launches - before
+    print(f"K4 launches: {launches}")
+    check(launches == {"serving_squeezesegv3_21": len(K4_SHAPES),
+                       "serving_salsanext": 0,
+                       "training_squeezesegv3_21": 0},
+          f"K4 launches by path: {launches}")
+    return rows, launches
 
 
 def k2_check(k2, proj_range, depth, px, py, n_classes, knn_cfg, name):
@@ -1716,6 +1880,7 @@ def main() -> int:
     from coarse3d_tpu_torch.ops import knn_vote as k2
     from coarse3d_tpu_torch.ops import proj_scatter as k1
     from coarse3d_tpu_torch.ops import proto_update as k3
+    from coarse3d_tpu_torch.ops import sac_fused as k4
     from coarse3d_tpu_torch.ops._build import build_all
     from coarse3d_tpu_torch.ops.knn import knn_postprocess, pack_range_image
     from coarse3d_tpu_torch import native
@@ -1745,10 +1910,11 @@ def main() -> int:
         t_phase = time.perf_counter()
 
     t0 = time.perf_counter()
-    libs = [k1.LIBRARY, k2.LIBRARY, k3.LIBRARY]
+    libs = [k1.LIBRARY, k2.LIBRARY, k3.LIBRARY, k4.LIBRARY]
     build_all(libs)
+    build_s = {lib.name: round(lib.build_s or 0.0, 1) for lib in libs}
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, {len(libs)} "
-          "sources at once)")
+          f"sources at once; each source's nvcc seconds {build_s})")
     for lib in libs:
         for func, regs, spill in ptxas_report(lib.log_path):
             print(f"ptxas {lib.name} {func}: {regs}; {spill}")
@@ -1815,6 +1981,10 @@ def main() -> int:
     # -- 3b. K3 ------------------------------------------------------------
     k3_dense = k3_phase(k3, *k3_case(dev), ignore=0, name="dense", tag=tag)
     phase_done("3b K3 dense")
+
+    # -- 3c. K4 ------------------------------------------------------------
+    k4_rows, k4_launches = k4_phase(k4, dev, host, tag)
+    phase_done("3c K4")
 
     # -- 4. the serving path -------------------------------------------------
     state = calibrated_state(cfg, host[0][0][:2], host[0][1][:2])
@@ -2088,6 +2258,18 @@ def main() -> int:
                                 "training": k3_train["rows"]},
          "pass_ms_by_size": {"dense": k3_dense["passes"],
                              "training": k3_train["passes"]}},
+        {"name": "sac_fused", "route": "cuda",
+         "source": "coarse3d_tpu_torch/csrc/sac_fused.cu",
+         "replaces": None,     # the JAX SAC block is plain XLA
+         "launches": k4_launches["serving_squeezesegv3_21"],
+         "launches_by_path": k4_launches,
+         "max_abs_err": max(r["abs_err"] for r in k4_rows),
+         "ms": sum(r["ms"] for r in k4_rows),
+         "plain_ms": sum(r["plain"] for r in k4_rows),
+         "bound_ms": sum(r["bound"] for r in k4_rows),
+         "bound_by": "bf16 operations",
+         "library_ms": sum(r["library"] for r in k4_rows),
+         "by_block": k4_rows, "build_s": build_s},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

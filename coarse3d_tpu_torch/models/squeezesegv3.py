@@ -19,7 +19,12 @@ The SAC BatchNorms use momentum 0.1, the shared darknet blocks 0.01
 (``models/rangenet.py``). The dropout rate is 0.01 everywhere, fixed.
 
 At full resolution one SAC block holds the (B, 9 * 32, H, W) unfold and an
-attention map of the same size: 1.2 GB each at B=16, 64x2048, bf16.
+attention map of the same size: 1.2 GB each at B=16, 64x2048, bf16. In eval
+mode with grad off, a block runs its attention, product and 1x1 mix (with
+their BatchNorms folded in) as one call, ``ops/sac_fused.py:sac_fused``:
+kernel K4 on bf16 CUDA tensors, its plain twin on CPU tensors; neither map
+is written. Training, and anything with grad on, runs the modules as they
+are.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from coarse3d_tpu_torch.models.rangenet import (
     darknet_conv,
 )
 from coarse3d_tpu_torch.ops.resize import resize_bilinear
+from coarse3d_tpu_torch.ops.sac_fused import SacWeights, fold_sac, sac_fused
 
 DROP = 0.01
 
@@ -67,11 +73,31 @@ class SACBlock(nn.Module):
             nn.Conv2d(9 * c, c, 1), batch_norm(c), nn.ReLU(),
             nn.Conv2d(c, c, 3, padding=1), batch_norm(c), nn.ReLU())
 
+        self._folded: tuple[tuple, SacWeights] | None = None
+
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor
                 ) -> torch.Tensor:
-        att = self.attention_x(xyz)
-        new = unfold3x3(feature) * att.to(feature.dtype)
-        return self.position_mlp_2(new) + feature
+        if (self.training or torch.is_grad_enabled()
+                or (feature.is_cuda and feature.dtype != torch.bfloat16)):
+            att = self.attention_x(xyz)
+            new = unfold3x3(feature) * att.to(feature.dtype)
+            return self.position_mlp_2(new) + feature
+        mixed = sac_fused(xyz.to(feature.dtype).contiguous(),
+                          feature.contiguous(), self.folded(feature.dtype))
+        return self.position_mlp_2[3:](mixed) + feature
+
+    def folded(self, dtype: torch.dtype) -> SacWeights:
+        """:func:`fold_sac` of this block for ``dtype`` features, cached
+        until a tensor it reads is replaced or changed in place (a
+        ``load_state_dict``, an optimizer step: the key holds each tensor's
+        identity, storage and version counter)."""
+        attention, mix = self.attention_x[:2], self.position_mlp_2[:2]
+        reads = [*attention.parameters(), *attention.buffers(),
+                 *mix.parameters(), *mix.buffers()]
+        key = (dtype, *((id(t), t.data_ptr(), t._version) for t in reads))
+        if self._folded is None or self._folded[0] != key:
+            self._folded = (key, fold_sac(*attention, *mix, dtype))
+        return self._folded[1]
 
 
 class SACStage(nn.Module):

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -62,6 +63,7 @@ class KernelLibrary:
         self._bind = bind
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
+        self.build_s: float | None = None   # nvcc's wall seconds, if it ran
 
     @property
     def lib_path(self) -> str:
@@ -86,6 +88,7 @@ class KernelLibrary:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         proc.tmp_path = tmp  # type: ignore[attr-defined]
+        proc.t0 = time.perf_counter()  # type: ignore[attr-defined]
         return proc
 
     def finish_build(self, proc: subprocess.Popen | None) -> str | None:
@@ -93,6 +96,7 @@ class KernelLibrary:
         if proc is None:
             return None
         log, _ = proc.communicate()
+        self.build_s = time.perf_counter() - proc.t0  # type: ignore
         with open(self.log_path, "w") as f:
             f.write(log)
         if proc.returncode != 0:
@@ -115,9 +119,21 @@ class KernelLibrary:
 
 def build_all(libraries: list[KernelLibrary]) -> None:
     """Compile every library that is not built yet, all nvcc runs at once,
-    then load each. Waits for every nvcc before raising on a failed one."""
+    then load each. Waits for every nvcc before raising on a failed one;
+    each library's ``build_s`` is its own nvcc's wall time."""
     procs = [(lib, lib.start_build()) for lib in libraries]
-    errors = [e for e in (lib.finish_build(proc) for lib, proc in procs) if e]
+    results: list[str | None] = [None] * len(procs)
+
+    def finish(i: int) -> None:
+        results[i] = procs[i][0].finish_build(procs[i][1])
+
+    waiters = [threading.Thread(target=finish, args=(i,))
+               for i in range(len(procs))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    errors = [e for e in results if e]
     if errors:
         raise RuntimeError("\n".join(errors))
     for lib in libraries:

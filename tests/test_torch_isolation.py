@@ -345,8 +345,10 @@ def test_tool_cli_flags_cover_the_originals(tool):
 
 def test_project_listing_has_a_counterpart_for_every_module():
     """Every module of the JAX package has its counterpart in the port;
-    the port's only other modules are its own additions, and the Pallas
-    kernels live in ops/{proj_scatter,knn_vote,proto_update}.py."""
+    the port's only other modules are its own additions, the Pallas
+    kernels live in ops/{proj_scatter,knn_vote,proto_update}.py, and
+    ops/sac_fused.py wraps the one hand kernel that replaces no Pallas
+    kernel (the SAC block's, plain XLA in the JAX package)."""
     def listing(package):
         root = os.path.join(REPO, package)
         return {os.path.relpath(os.path.join(d, f), root)
@@ -359,7 +361,7 @@ def test_project_listing_has_a_counterpart_for_every_module():
     assert jax_mods - port == set()
     assert port - jax_mods == {
         "device.py", "entry.py", "ops/_build.py", "ops/proj_scatter.py",
-        "ops/knn_vote.py", "ops/proto_update.py",
+        "ops/knn_vote.py", "ops/proto_update.py", "ops/sac_fused.py",
         "tools/convert_jax_params.py", "tools/_flax_msgpack.py",
         "utils/profiling.py"}
 
