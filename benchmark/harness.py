@@ -7,8 +7,10 @@ A cell is an entry of ``workloads`` in ``BENCHMARK.json``. Its files:
 ``benchmark/traffic/<traffic>.json`` (the mix's parameters, which name the
 driver in ``benchmark/drivers/`` that generates it),
 ``benchmark/limits/<workload>.json`` (the limits of its correctness
-numbers) and, for each per-layer metric it reports,
-``benchmark/metrics/<metric>.py``.
+numbers), for each per-layer metric it reports,
+``benchmark/metrics/<metric>.py``, and, for a model family that
+``benchmark/reference/models.py`` does not hold,
+``benchmark/reference/<net_type>.py``.
 """
 
 from __future__ import annotations

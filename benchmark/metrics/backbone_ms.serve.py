@@ -7,7 +7,6 @@ UNIT = "ms"
 LAYER = "model step"
 SOURCE = "program_span"
 MOVES = "serve_scans_per_s"
-WORKLOADS = ["salsanext-kitti.serve-b8", "sqsgv3_21-kitti.serve-b8"]
 
 
 def read(ctx):

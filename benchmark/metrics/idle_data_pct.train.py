@@ -8,7 +8,6 @@ UNIT = "%"
 LAYER = "data"
 SOURCE = "program_span"
 MOVES = "train_scans_per_s"
-WORKLOADS = ["sqsgv3_21-kitti.train-b4"]
 
 
 def read(ctx):

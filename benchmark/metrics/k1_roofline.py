@@ -8,7 +8,6 @@ UNIT = "%"
 LAYER = "projection"
 SOURCE = "device_trace"
 MOVES = "serve_scans_per_s"
-WORKLOADS = ["salsanext-kitti.serve-b8", "sqsgv3_21-kitti.serve-b8"]
 KERNELS = ("scatter_keys", "emit_pixels")
 
 

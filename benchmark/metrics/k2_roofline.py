@@ -7,7 +7,6 @@ UNIT = "%"
 LAYER = "KNN"
 SOURCE = "device_trace"
 MOVES = "serve_scans_per_s"
-WORKLOADS = ["salsanext-kitti.serve-b8", "sqsgv3_21-kitti.serve-b8"]
 KERNELS = ("tile_count", "tile_scan", "tile_scatter", "tile_vote")
 
 

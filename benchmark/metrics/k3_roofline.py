@@ -8,7 +8,6 @@ UNIT = "%"
 LAYER = "prototype memory"
 SOURCE = "device_trace"
 MOVES = "train_scans_per_s"
-WORKLOADS = ["sqsgv3_21-kitti.train-b4"]
 KERNELS = ("live_tiles", "row_pass", "class_pass")
 
 

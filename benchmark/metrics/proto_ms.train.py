@@ -7,7 +7,6 @@ UNIT = "ms"
 LAYER = "prototype memory"
 SOURCE = "program_span"
 MOVES = "train_scans_per_s"
-WORKLOADS = ["sqsgv3_21-kitti.train-b4"]
 
 
 def read(ctx):

@@ -5,7 +5,9 @@ SalsaNext (arXiv:2003.03653, as the COARSE3D reference's
 ``squeezesegv3_Proto.py``), frozen here so that later changes to the
 program cannot move the yardstick. Module and parameter names are the
 reference's, so one state dict loads into both these models and the
-program's.
+program's. Another family is a module of its own beside this one
+(:func:`build`), made of this file's ``Conv2d``, ``ConvTranspose2d``,
+``bn`` and ``Dropout2d`` so that what follows holds for it too.
 
 Everything computes in float32; the caller turns TF32 off
 (:func:`float32_math`). BatchNorm in training normalises with the batch's
@@ -20,6 +22,9 @@ lower-precision control of the correctness check.
 """
 
 from __future__ import annotations
+
+import importlib
+import importlib.util
 
 import torch
 import torch.nn as nn
@@ -409,7 +414,10 @@ class SqueezeSegV3(nn.Module):
 
 
 def build(model_cfg: dict, n_classes: int, proj_dim: int) -> nn.Module:
-    """The reference model a configuration file's ``model`` block names."""
+    """The reference model a configuration file's ``model`` block names:
+    SalsaNext and SqueezeSegV3 from this file, any other ``net_type``
+    from the ``build(model_cfg, n_classes, proj_dim)`` of
+    ``benchmark/reference/<net_type>.py``."""
     net = model_cfg["net_type"]
     if net == "salsanext":
         if model_cfg.get("stem", "parity") != "parity":
@@ -420,4 +428,9 @@ def build(model_cfg: dict, n_classes: int, proj_dim: int) -> nn.Module:
     if net == "squeezesegv3":
         return SqueezeSegV3(n_classes, model_cfg.get("layers", 21),
                             model_cfg.get("in_channels", 5), proj_dim)
-    raise ValueError(f"no reference model for net_type {net!r}")
+    module = f"benchmark.reference.{net}"
+    if not net.isidentifier() or importlib.util.find_spec(module) is None:
+        raise ValueError(f"no reference model for net_type {net!r}: "
+                         f"no file benchmark/reference/{net}.py")
+    return importlib.import_module(module).build(model_cfg, n_classes,
+                                                 proj_dim)
