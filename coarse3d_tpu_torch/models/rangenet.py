@@ -24,6 +24,10 @@ PyTorch kernel is the Flax one transposed and flipped in space
 
 Layout and types as ``models/salsanext.py``: NCHW in and out, the backbone
 under autocast in ``compute_dtype``, the head and the projector in float32.
+
+Spans (``utils/profiling.py:span``): ``model.encoder`` holds the darknet
+backbone, ``model.decoder`` the decoder with its dropout and the head's
+dropout; they nest in ``serve.backbone`` or ``train.forward``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from coarse3d_tpu_torch.models.blocks import (
     batch_norm,
 )
 from coarse3d_tpu_torch.ops.resize import resize_bilinear
+from coarse3d_tpu_torch.utils.profiling import span
 
 # residual block counts per darknet depth (rangenet_proto.py:70-73)
 MODEL_BLOCKS = {21: (1, 1, 2, 2, 1), 53: (1, 2, 8, 8, 4)}
@@ -191,9 +196,11 @@ class RangeNet(nn.Module):
         dev = x.device.type
         with torch.autocast(dev, dtype=self.compute_dtype,
                             enabled=self.compute_dtype != torch.float32):
-            feat, skips = self.backbone(x, generator)
-            feat = self.dropout(self.decoder(feat, skips), generator)
-            feat = self.head[0](feat, generator)
+            with span("model.encoder"):
+                feat, skips = self.backbone(x, generator)
+            with span("model.decoder"):
+                feat = self.dropout(self.decoder(feat, skips), generator)
+                feat = self.head[0](feat, generator)
 
         with torch.autocast(dev, enabled=False):
             logits = self.head[1](feat.float())

@@ -2,7 +2,8 @@
 ``torch.profiler`` trace.
 
 Spans. ``span(name)`` marks a stage of the serving path or of a training
-step (``eval/inference.py``, ``train/trainer.py``, ``train/step.py``).
+step (``eval/inference.py``, ``train/trainer.py``, ``train/step.py``), or
+a half of a model's forward (``models/rangenet.py``).
 A span records only while a ``torch.profiler`` profile records in this
 process; otherwise it is one check of torch's profiler flag and stores
 nothing. A recorded span holds its name, its parent (the span open on the
